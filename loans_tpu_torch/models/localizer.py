@@ -1,0 +1,125 @@
+"""Localizer: backbone + affine-param head + STN crop (port of
+``loans_tpu/models/localizer.py``).
+
+* Preprocessing is x*255 - ImageNet mean (RGB order).
+* The extra ``res6``/``res7`` stages exist when the static ``input_size``
+  is above 224 / 300.
+* The head ``param_predictor`` starts with zero weights and bias
+  [0.8, 0, 0, 0, 0.8, 0]: a centered 0.8-scale axis-aligned crop.
+* Rotation dropout, then the crop, then optional grayscale (standard luma
+  0.299 R + 0.587 G + 0.114 B, as in the JAX package).
+
+``sampler="auto"`` at ``rotation_dropout_ratio == 0`` crops with the CUDA
+kernel (``method="pallas"``) for CUDA tensors and with its plain PyTorch
+version (``method="separable"``) for CPU tensors, where no kernel can
+run; at other ratios it uses the gather path (``"general"``).
+"""
+
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from loans_tpu_torch.models.resnet import BasicStage, BottleNeckStage, ResNet
+from loans_tpu_torch.ops.geometry import Size
+from loans_tpu_torch.ops.rotation_dropout import rotation_dropout
+from loans_tpu_torch.ops.stn import spatial_transform
+
+# ImageNet channel means, RGB order, for x*255 inputs.
+IMAGENET_MEAN_RGB = (123.68, 116.779, 103.939)
+HEAD_BIAS = (0.8, 0.0, 0.0, 0.0, 0.8, 0.0)
+GRAYSCALE_WEIGHTS = (0.299, 0.587, 0.114)
+
+
+class Localizer(nn.Module):
+    """Backbone + 6-param affine head + STN crop.
+
+    Args:
+      out_size: crop size fed to the assessor.
+      n_layers: backbone ResNet variant.
+      input_size: static input size; enables res6 (>224) and res7 (>300).
+      rotation_dropout_ratio: see ``ops/rotation_dropout``.
+      sampler: 'auto' | 'separable' | 'pallas' | 'general' (see
+        ``ops.stn.spatial_transform``).
+      transform_rois_to_grayscale: collapse crops to 1 channel.
+    """
+
+    def __init__(
+        self,
+        out_size: Size = Size(75, 75),
+        n_layers: int = 50,
+        input_size: Size = Size(224, 224),
+        rotation_dropout_ratio: float = 0.0,
+        sampler: str = "auto",
+        transform_rois_to_grayscale: bool = False,
+    ):
+        super().__init__()
+        self.out_size = Size(*out_size)
+        self.n_layers = n_layers
+        self.input_size = Size(*input_size)
+        self.rotation_dropout_ratio = rotation_dropout_ratio
+        self.sampler = sampler
+        self.transform_rois_to_grayscale = transform_rois_to_grayscale
+        self.feature_extractor = ResNet(n_layers)
+        ch = self.feature_extractor.feature_dim
+        if self.input_size.height > 224:
+            self.res6 = self._extra_stage(ch)
+            if self.input_size.height > 300:
+                self.res7 = self._extra_stage(ch)
+        self.param_predictor = nn.Linear(ch, 6)
+        nn.init.zeros_(self.param_predictor.weight)
+        with torch.no_grad():
+            self.param_predictor.bias.copy_(torch.tensor(HEAD_BIAS))
+        self.register_buffer(
+            "mean", torch.tensor(IMAGENET_MEAN_RGB), persistent=False
+        )
+
+    def _extra_stage(self, ch: int) -> nn.Module:
+        if self.n_layers in (18, 34):
+            return BasicStage(ch, 2, 512, 2)
+        return BottleNeckStage(ch, 2, 1024, 2048, 2)
+
+    def sampler_method(self, images: torch.Tensor) -> str:
+        """The ``spatial_transform`` method this call crops with."""
+        if self.sampler != "auto":
+            return self.sampler
+        if self.rotation_dropout_ratio != 0.0:
+            return "general"
+        return "pallas" if images.is_cuda else "separable"
+
+    def forward(
+        self,
+        images: torch.Tensor,
+        generator: torch.Generator | None = None,
+    ) -> tuple[torch.Tensor, torch.Tensor]:
+        """Args:
+          images: (N, H, W, 3) RGB in [0, 1], NHWC.
+          generator: rotation-dropout draw in train mode at 0 < ratio < 1.
+
+        Returns:
+          (rois, theta): (N, out_h, out_w, C) crops of the *unnormalized*
+          images, and the (N, 2, 3) affine params.
+        """
+        x = images * 255.0 - self.mean.to(images.dtype)
+        h = self.feature_extractor(x.permute(0, 3, 1, 2))
+        if hasattr(self, "res6"):
+            h = self.res6(h)
+        if hasattr(self, "res7"):
+            h = self.res7(h)
+        h = h.mean(dim=(2, 3))  # global average pool
+        theta = self.param_predictor(h.float()).reshape(-1, 2, 3)
+        theta = rotation_dropout(
+            theta,
+            self.rotation_dropout_ratio,
+            train=self.training,
+            generator=generator,
+        )
+        rois = spatial_transform(
+            images, theta, self.out_size, method=self.sampler_method(images)
+        )
+        if self.transform_rois_to_grayscale:
+            if rois.shape[-1] != 3:
+                raise ValueError("rois are not in RGB, can not convert them to grayscale")
+            weights = rois.new_tensor(GRAYSCALE_WEIGHTS)
+            rois = (rois * weights).sum(dim=-1, keepdim=True)
+        return rois, theta

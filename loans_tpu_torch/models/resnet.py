@@ -1,0 +1,216 @@
+"""Scratch ResNet family, NCHW (port of ``loans_tpu/models/resnet.py``).
+
+Architectural details kept from the JAX reference:
+  * every stage's first block (``BasicA``/``BottleNeckA``) has a
+    *projection* shortcut even at stride 1; ``BasicA``'s projection is a
+    full 3x3 conv, not 1x1;
+  * the stem max-pool is chainer's ``cover_all`` mode (3x3/2 with -inf
+    padding on the bottom/right), which yields 56x56 from 224 inputs;
+  * BatchNorm uses chainer defaults: eps 2e-5 and running-average weight
+    0.9 (torch ``momentum=0.1``); eval uses the running statistics;
+  * bottleneck downsampling strides live on the first 1x1 conv
+    (caffe-style).
+
+Submodules carry the flax module names of the JAX package (``Conv_0``,
+``BatchNorm_0``, ``ConvBN_1``, ``BottleNeckStage_0``, ...), so a
+``state_dict`` key is the flax parameter path with ``/`` replaced by
+``.`` (see ``loans_tpu_torch/bridge.py``).
+"""
+
+from __future__ import annotations
+
+from typing import Sequence
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+BLOCK_CONFIGS: dict[int, Sequence[int]] = {
+    18: (2, 2, 2, 2),
+    19: (2, 2, 2, 2),
+    20: (2, 2, 2, 2, 2, 2),
+    32: (5, 5, 5),
+    34: (3, 4, 6, 3),
+    44: (7, 7, 7),
+    50: (3, 4, 6, 3),
+    56: (9, 9, 9),
+    101: (3, 4, 23, 3),
+    110: (18, 18, 18),
+    152: (3, 4, 36, 3),
+}
+
+_BASIC = (18, 20, 34)
+_SMALL = (32, 44, 56, 110)
+_BOTTLENECK = (19, 50, 101, 152)
+
+
+def batch_norm(ch: int) -> nn.BatchNorm2d:
+    """BatchNorm with chainer defaults (eps 2e-5, decay 0.9)."""
+    return nn.BatchNorm2d(ch, eps=2e-5, momentum=0.1)
+
+
+def _add(module: nn.Module, child: nn.Module) -> nn.Module:
+    """Register ``child`` under flax's auto name ``<Class>_<k>``."""
+    cls = type(child).__name__
+    k = sum(1 for name in module._modules if name.startswith(cls + "_"))
+    module.add_module(f"{cls}_{k}", child)
+    return child
+
+
+class ConvBN(nn.Module):
+    """Conv (no bias) + BatchNorm."""
+
+    def __init__(self, in_ch: int, features: int, kernel: int, stride: int = 1, pad: int = 0):
+        super().__init__()
+        self.Conv_0 = nn.Conv2d(
+            in_ch, features, kernel, stride=stride, padding=pad, bias=False
+        )
+        self.BatchNorm_0 = batch_norm(features)
+
+    def forward(self, x):
+        return self.BatchNorm_0(self.Conv_0(x))
+
+
+class BasicA(nn.Module):
+    """First block of a basic stage: 3x3-3x3 main branch + 3x3 projection
+    shortcut."""
+
+    def __init__(self, in_ch: int, ch: int, stride: int = 2):
+        super().__init__()
+        self.ConvBN_0 = ConvBN(in_ch, ch, 3, stride, 1)
+        self.ConvBN_1 = ConvBN(ch, ch, 3, 1, 1)
+        self.ConvBN_2 = ConvBN(in_ch, ch, 3, stride, 1)
+
+    def forward(self, x):
+        h1 = self.ConvBN_1(F.relu(self.ConvBN_0(x)))
+        return F.relu(h1 + self.ConvBN_2(x))
+
+
+class BasicB(nn.Module):
+    """Identity basic block."""
+
+    def __init__(self, ch: int):
+        super().__init__()
+        self.ConvBN_0 = ConvBN(ch, ch, 3, 1, 1)
+        self.ConvBN_1 = ConvBN(ch, ch, 3, 1, 1)
+
+    def forward(self, x):
+        h = self.ConvBN_1(F.relu(self.ConvBN_0(x)))
+        return F.relu(h + x)
+
+
+class BottleNeckA(nn.Module):
+    """First bottleneck of a stage: 1x1(s)-3x3-1x1 + 1x1(s) projection."""
+
+    def __init__(self, in_ch: int, ch: int, out_ch: int, stride: int = 2):
+        super().__init__()
+        self.ConvBN_0 = ConvBN(in_ch, ch, 1, stride, 0)
+        self.ConvBN_1 = ConvBN(ch, ch, 3, 1, 1)
+        self.ConvBN_2 = ConvBN(ch, out_ch, 1, 1, 0)
+        self.ConvBN_3 = ConvBN(in_ch, out_ch, 1, stride, 0)
+
+    def forward(self, x):
+        h1 = F.relu(self.ConvBN_0(x))
+        h1 = F.relu(self.ConvBN_1(h1))
+        h1 = self.ConvBN_2(h1)
+        return F.relu(h1 + self.ConvBN_3(x))
+
+
+class BottleNeckB(nn.Module):
+    """Identity bottleneck."""
+
+    def __init__(self, ch: int, out_ch: int):
+        super().__init__()
+        self.ConvBN_0 = ConvBN(out_ch, ch, 1, 1, 0)
+        self.ConvBN_1 = ConvBN(ch, ch, 3, 1, 1)
+        self.ConvBN_2 = ConvBN(ch, out_ch, 1, 1, 0)
+
+    def forward(self, x):
+        h = F.relu(self.ConvBN_0(x))
+        h = F.relu(self.ConvBN_1(h))
+        return F.relu(self.ConvBN_2(h) + x)
+
+
+class BasicStage(nn.Module):
+    """Stage of basic blocks."""
+
+    def __init__(self, in_ch: int, n_blocks: int, ch: int, stride: int = 2):
+        super().__init__()
+        _add(self, BasicA(in_ch, ch, stride))
+        for _ in range(n_blocks - 1):
+            _add(self, BasicB(ch))
+        self.out_ch = ch
+
+    def forward(self, x):
+        for block in self.children():
+            x = block(x)
+        return x
+
+
+class BottleNeckStage(nn.Module):
+    """Stage of bottleneck blocks."""
+
+    def __init__(self, in_ch: int, n_blocks: int, ch: int, out_ch: int, stride: int = 2):
+        super().__init__()
+        _add(self, BottleNeckA(in_ch, ch, out_ch, stride))
+        for _ in range(n_blocks - 1):
+            _add(self, BottleNeckB(ch, out_ch))
+        self.out_ch = out_ch
+
+    def forward(self, x):
+        for block in self.children():
+            x = block(x)
+        return x
+
+
+def cover_all_max_pool(x: torch.Tensor, window: int, stride: int) -> torch.Tensor:
+    """chainer ``max_pooling_2d(cover_all=True)``: -inf padding of
+    ``stride - 1`` on the bottom/right so every input pixel is covered."""
+    x = F.pad(x, (0, stride - 1, 0, stride - 1), value=float("-inf"))
+    return F.max_pool2d(x, window, stride)
+
+
+class ResNet(nn.Module):
+    """Configurable scratch ResNet feature extractor.
+
+    ``forward`` takes NCHW input and returns the res5 (or res4 for the
+    small variants) NCHW feature map; ResNet-20 global-pools it, as in the
+    JAX package. The JAX package's classifier head (``class_labels``,
+    used for backbone pretraining) is not ported.
+    """
+
+    def __init__(self, n_layers: int = 18):
+        super().__init__()
+        self.n_layers = n_layers
+        stem_ch = 16 if n_layers in _SMALL else 64
+        self.Conv_0 = nn.Conv2d(3, stem_ch, 7, stride=2, padding=3, bias=False)
+        self.BatchNorm_0 = batch_norm(stem_ch)
+        in_ch = stem_ch
+        blocks = BLOCK_CONFIGS[n_layers]
+        strides = (1, 2, 2, 2, 2, 2)
+        if n_layers in _BOTTLENECK:
+            mids, outs = (64, 128, 256, 512), (256, 512, 1024, 2048)
+            for b, mid, out, s in zip(blocks, mids, outs, strides):
+                in_ch = _add(self, BottleNeckStage(in_ch, b, mid, out, s)).out_ch
+        else:
+            chs = (16, 32, 64) if n_layers in _SMALL else (64, 128, 256, 512, 512, 512)
+            for b, ch, s in zip(blocks, chs, strides):
+                in_ch = _add(self, BasicStage(in_ch, b, ch, s)).out_ch
+
+    def forward(self, x):
+        h = F.relu(self.BatchNorm_0(self.Conv_0(x)))
+        h = cover_all_max_pool(h, 3, 2)
+        for name, stage in self.named_children():
+            if "Stage_" in name:
+                h = stage(h)
+        if self.n_layers == 20:
+            h = h.mean(dim=(2, 3))
+        return h
+
+    @property
+    def feature_dim(self) -> int:
+        if self.n_layers in _BASIC or self.n_layers == 20:
+            return 512
+        if self.n_layers in _SMALL:
+            return 64
+        return 2048
