@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Smoke run of the PyTorch port's serving path on one CUDA card.
+"""Smoke run of the PyTorch port's serving and training paths on one CUDA
+card.
 
     python3 chip_smoke.py
 
@@ -8,23 +9,36 @@ Phases, one line or more each; any failure exits non-zero:
 1. environment: the card's name and power limit (``nvidia-smi``), the
    torch / CUDA / nvcc versions, and the time to build the CUDA kernels
    from this checkout;
-2. each kernel against its plain PyTorch version on the card (TF32 off),
-   with its time and the plain version's (CUDA events, median of 25 runs);
-3. the slice: an R-50 224x224 -> 75x75 localizer with the assessor,
-   seeded and saved as ``.pt`` snapshots in a temporary log dir, served
-   through ``LocalizerInference(device="cuda")``: 2 single-frame requests
-   and 3 batches of 32 frames, with each kernel's launch count checked;
-4. the same models and weights on the CPU (plain sampler) against the
-   card on 2 frames.
+2. the forward kernel against its plain PyTorch version on the card (TF32
+   off), with its time, the plain version's, the library yardstick's
+   (``F.grid_sample`` over ``F.affine_grid``) and the bound (CUDA events,
+   median of 25 calls; profiler device time);
+2b. the two backward kernels (d theta, d images) against the plain
+   backward on the card, the same way, with ``F.grid_sample``'s backward
+   as the yardstick;
+3. serving: an R-50 224x224 -> 75x75 localizer with the assessor, seeded
+   and saved as ``.pt`` snapshots in a temporary log dir, served through
+   ``LocalizerInference(device="cuda")``: 2 single-frame requests and 3
+   batches of 32 frames, with the forward kernel's launches checked;
+4. the same serving models and weights on the CPU against the card;
+5. training: ``Trainer`` runs the pooled alternating step (8 steps per
+   call, batch 64) on uint8 pools resident on the card, R-50 224->75 and
+   the assessor, float32, Adam(amsgrad) lr 1e-3: 1 warm-up chunk and 3
+   timed chunks, with each kernel's launches checked, a profiled chunk,
+   and the last snapshot served through ``LocalizerInference``;
+6. two training steps on the card against the CPU from the same weights
+   (batch 4, full width).
 
-The line before the last is a JSON object of the kernels, with their
-launch counts in phase 3, errors and times; the last line is
-``{"ok": true, "device": {...}}``. Without a CUDA card it exits with an
-error before printing either.
+The line before the last is a JSON object of the kernels: launches in
+phase 5, errors from phases 2 and 2b, times and bounds at the training
+batch. The last line is ``{"ok": true, "device": {...}}``. Without a CUDA
+card it exits with an error before printing either.
 """
 
 from __future__ import annotations
 
+import copy
+import functools
 import json
 import statistics
 import subprocess
@@ -33,22 +47,66 @@ import time
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 from torch import nn
 
+from loans_tpu_torch.data.device_data import device_chunk_batches
 from loans_tpu_torch.inference.localizer import LocalizerInference, set_precision
-from loans_tpu_torch.ops import _cuda
+from loans_tpu_torch.ops import _cuda, stn
 from loans_tpu_torch.ops.geometry import Size
 from loans_tpu_torch.ops.stn import sample_separable, sample_separable_kernel
-from loans_tpu_torch.train import checkpoint
+from loans_tpu_torch.train import (
+    AlternatingConfig,
+    MetricsLog,
+    Trainer,
+    alternating_step,
+    checkpoint,
+    create_train_state,
+    pooled_step,
+)
 from loans_tpu_torch.utils.registry import build_assessor, build_model
 
 SEED = 0
 DEVICE = "cuda"
 INPUT, CROP, BATCH = 224, 75, 32
+TRAIN_BATCH, STEPS_PER_CALL, TIMED_CHUNKS, LR = 64, 8, 3, 1e-3
+POOL_SCENES, POOL_CROPS = 512, 1024
 K1_TOL = 1e-5  # absolute, images in [0, 1]
-# card against CPU: float32 on both, sums in another order; a theta error d
-# moves samples by d * 111.5 px on frames whose pixels step by up to ~0.5
-SLICE_TOL = {"theta": 1e-4, "boxes_px": 1e-2, "rois": 1e-3, "scores": 1e-4}
+# backward kernels against the plain backward on the card: d theta sums
+# ~17k products per image in another order (a fixed tree in the kernel,
+# matmuls in the plain version), so relative to its largest entry; d images
+# sums a few products per pixel, with float atomics in run-to-run order,
+# against cotangents of order 1
+K1_BWD_TOL = {"dtheta_rel": 1e-5, "dimages_abs": 1e-5}
+# card against CPU: float32 on both, sums in another order. The crop is
+# held at the card's theta (the kernel against the CPU's plain crop, as in
+# phase 2); end to end, a theta error d moves a sample by up to
+# 2 * d * (INPUT - 1) / 2 px per axis (scale and shift), and these frames
+# step by up to 1.0 between pixels at the rectangles' edges, so the crops
+# may differ by 2 * d * (INPUT - 1) on top of rounding (rois_end_to_end).
+SLICE_TOL = {"theta": 1e-4, "boxes_px": 1e-2, "rois_at_card_theta": 1e-5, "scores": 1e-4}
+# two training steps, card against CPU, float32, TF32 off: cuDNN's and the
+# CPU's convolutions (and their backwards) sum in another order. Relative
+# to each tensor's largest entry: losses 1e-3 (from step 2 on, the
+# localizer's loss is mostly the out-of-image sum, linear in theta, which
+# follows the R-50 features; serving's theta agrees card vs CPU to ~2e-5
+# of its size in phase 4, and step 2 moves theta far off the image, where
+# the sum is large); theta's gradient 1e-2: at
+# step 1 it is only the assessor's, a sum of ~17k products per image with
+# both signs, over a cotangent in which the few ReLUs whose input lies
+# within float32 rounding of 0 switch differently on the two devices
+# (phase 2b holds the kernel itself to 1e-5 on identical inputs); the
+# head's gradient 1e-3; the stem conv's gradient loses digits in float32
+# even on one device (0.7% of its largest entry against float64 in the CPU
+# tests), so 5e-2; BatchNorm running statistics 1e-4. The crops' cotangent
+# itself is printed, not held: a switched ReLU moves a whole receptive
+# field's gradient, so its largest elementwise difference is of the order
+# of the gradient (each convolution's dgrad alone agrees to 2e-6).
+STEP_TOL = {"loss": 1e-3, "dtheta": 1e-2, "head_grad": 1e-3, "stem_grad": 5e-2, "bn_stats": 1e-4}
+# H100 SXM peaks at 700 W (NVIDIA data sheet): HBM bytes/s and float32
+# FLOP/s outside the tensor cores
+HBM_BYTES_PER_S = 3.35e12
+FP32_FLOPS_PER_S = 67e12
 MANIFEST = {
     "localizer": {
         "model": "Localizer",
@@ -63,11 +121,21 @@ MANIFEST = {
     "assessor": {"model": "ResnetAssessor", "kwargs": {}},
     "snapshot_names": ["Localizer", "ResnetAssessor"],
 }
+COUNTERS = {"fwd": "launches", "bwd_theta": "launches_bwd_theta", "bwd_images": "launches_bwd_images"}
 
 
 def check(ok: bool, what: str) -> None:
     if not ok:
         raise SystemExit(f"chip_smoke FAILED: {what}")
+
+
+def reset_launches() -> None:
+    for attr in COUNTERS.values():
+        setattr(sample_separable_kernel, attr, 0)
+
+
+def read_launches() -> dict[str, int]:
+    return {k: getattr(sample_separable_kernel, attr) for k, attr in COUNTERS.items()}
 
 
 def cuda_ms(fn, reps: int = 25) -> float:
@@ -88,9 +156,9 @@ def cuda_ms(fn, reps: int = 25) -> float:
 
 def device_us(fn, reps: int = 20, match: str = "") -> float | None:
     """Device time per call of ``fn`` in µs from a ``torch.profiler``
-    trace: the summed self device time of the kernels and copies whose
-    name contains ``match``, over ``reps`` calls. None when the trace
-    holds no device time."""
+    trace: the summed self device time of the kernels, copies and memsets
+    whose name contains ``match``, over ``reps`` calls. None when the
+    trace holds no device time."""
     fn()
     torch.cuda.synchronize()
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
@@ -124,6 +192,10 @@ def scenes(rng: np.random.Generator, n: int, size: int) -> np.ndarray:
     return frames
 
 
+def on_card(a) -> torch.Tensor:
+    return torch.from_numpy(np.ascontiguousarray(a)).to(DEVICE)
+
+
 # -- phase 1 --------------------------------------------------------------
 def environment() -> str:
     card = subprocess.run(
@@ -144,12 +216,52 @@ def environment() -> str:
     for name in _cuda.SIGNATURES:
         log = _cuda.library_path(name).with_suffix(".log").read_text()
         for line in log.splitlines():
-            if "registers" in line or "spill" in line:
+            if "registers" in line or "spill" in line or "Compiling entry" in line:
                 print(f"build: {name}: {line.strip()}")
     return card
 
 
-# -- phase 2 --------------------------------------------------------------
+# -- bounds and the library yardstick ---------------------------------------
+def bound(kernel: str, images: torch.Tensor, theta: torch.Tensor, out_size: Size) -> tuple[float, str]:
+    """The least time (ms) the card could take for one call at these
+    inputs, and whether bytes or operations set it: each input read once
+    (of the images, the region that this run's taps touch), each output
+    written once, over the HBM rate; the float32 operations that these
+    taps need over the float32 rate."""
+    n, h, w, c = images.shape
+    ho, wo = out_size
+    dy = stn._offsets(theta[:, 1, 1], theta[:, 1, 2], ho, h)
+    dx = stn._offsets(theta[:, 0, 0], theta[:, 0, 2], wo, w)
+    if kernel == "bwd_theta":  # taps where the hat or its derivative is non-zero
+        ty = (stn._hat(dy) != 0) | (stn._hat_grad(dy) != 0)
+        tx = (stn._hat(dx) != 0) | (stn._hat_grad(dx) != 0)
+    else:
+        ty, tx = stn._hat(dy) != 0, stn._hat(dx) != 0
+    region = float((ty.any(1).sum(1) * tx.any(1).sum(1)).sum()) * c * 4
+    ny, nx = ty.sum(-1).double(), tx.sum(-1).double()  # taps per output row / column
+    crop_bytes, theta_bytes = n * ho * wo * c * 4, n * 24
+    pairs = float((ny.sum(1) * nx.sum(1)).sum()) * c  # (row tap, column tap) pairs
+    cols = float(nx.sum() * ho) * c
+    if kernel == "fwd":  # read the region, write the crop
+        nbytes, flops = region + crop_bytes + theta_bytes, 2 * pairs + 2 * cols
+    elif kernel == "bwd_theta":  # read the region and g, write d theta
+        nbytes, flops = region + crop_bytes + 2 * theta_bytes, 4 * pairs + 4 * cols + 10 * n * ho * wo * c
+    else:  # read g, write all of d images
+        nbytes, flops = crop_bytes + n * h * w * c * 4 + theta_bytes, 3 * pairs
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / FP32_FLOPS_PER_S
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
+def library_crop(images_nchw: torch.Tensor, theta: torch.Tensor, out_size: Size) -> torch.Tensor:
+    """The same crop as one PyTorch call: ``F.grid_sample`` over
+    ``F.affine_grid`` (align corners, zero padding). A yardstick only."""
+    grid = F.affine_grid(
+        theta, (theta.shape[0], images_nchw.shape[1], out_size.height, out_size.width),
+        align_corners=True,
+    )
+    return F.grid_sample(images_nchw, grid, mode="bilinear", padding_mode="zeros", align_corners=True)
+
+
 def axis_aligned_theta(rng, n):
     theta = np.zeros((n, 2, 3), dtype=np.float32)
     theta[:, 0, 0] = rng.uniform(0.3, 1.1, n)
@@ -159,12 +271,16 @@ def axis_aligned_theta(rng, n):
     return theta
 
 
+BORDER_THETA = np.array(
+    [[[0.6, 0, 0.7], [0, 0.5, 0.8]], [[0.8, 0, -0.9], [0, 0.9, -1.2]],
+     [[1.2, 0, 0.0], [0, 1.3, 0.1]], [[0.3, 0, 0.95], [0, 0.3, -0.95]]],
+    np.float32,
+)
+
+
+# -- phase 2 --------------------------------------------------------------
 def kernel_against_plain(card: str) -> dict:
     rng = np.random.default_rng(SEED)
-    dev = torch.device(DEVICE)
-
-    def on_card(a):
-        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
 
     def compare(name, images, theta, out_size, expect=None):
         images, theta = on_card(images), on_card(theta)
@@ -180,35 +296,115 @@ def kernel_against_plain(card: str) -> dict:
 
     out = Size(CROP, CROP)
     errs, times = [], {}
-    for n in (BATCH, 128):
+    for n in (BATCH, TRAIN_BATCH, 128):
         imgs = rng.uniform(size=(n, INPUT, INPUT, 3)).astype(np.float32)
         err, images, theta = compare(f"N={n} {INPUT}^2->{CROP}^2", imgs, axis_aligned_theta(rng, n), out)
         errs.append(err)
+        images_nchw = images.permute(0, 3, 1, 2).contiguous()
         kernel = lambda: sample_separable_kernel(images, theta, out)  # noqa: E731
         plain = lambda: sample_separable(images, theta, out)  # noqa: E731
-        ms, plain_ms = cuda_ms(kernel), cuda_ms(plain)
-        times[n] = (ms, plain_ms)
+        library = lambda: library_crop(images_nchw, theta, out)  # noqa: E731
+        lib_err = float((library().permute(0, 2, 3, 1) - kernel()).abs().max())
+        ms, plain_ms, lib_ms = cuda_ms(kernel), cuda_ms(plain), cuda_ms(library)
+        bound_ms, bound_by = bound("fwd", images, theta, out)
+        times[n] = {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+                    "bound_ms": bound_ms, "bound_by": bound_by}
         print(f"K1 N={n}: per call (CUDA events, host launch included) kernel "
-              f"{ms * 1e3:.1f} us, plain bmm {plain_ms * 1e3:.1f} us ({card})")
+              f"{ms * 1e3:.1f} us, plain bmm {plain_ms * 1e3:.1f} us, library grid_sample "
+              f"{lib_ms * 1e3:.1f} us (max abs diff to the kernel {lib_err:.2e}); bound "
+              f"{bound_ms * 1e3:.2f} us ({bound_by}) ({card})")
         print(f"K1 N={n}: device time (profiler) kernel "
               f"{fmt_us(device_us(kernel, match='separable_sampler'))}, plain bmm "
-              f"{fmt_us(device_us(plain))} ({card})")
+              f"{fmt_us(device_us(plain))}, library {fmt_us(device_us(library))} ({card})")
 
     small = rng.uniform(size=(4, CROP, CROP, 3)).astype(np.float32)
     identity = np.tile(np.array([[1, 0, 0], [0, 1, 0]], np.float32), (4, 1, 1))
     errs.append(compare("identity", small, identity, out, expect=on_card(small))[0])
     imgs = rng.uniform(size=(4, INPUT, INPUT, 3)).astype(np.float32)
     off = np.tile(np.array([[0.5, 0, 5.0], [0, 0.5, 5.0]], np.float32), (4, 1, 1))
-    errs.append(compare("off-image", imgs, off, out, expect=torch.zeros(4, CROP, CROP, 3, device=dev))[0])
-    border = np.array(
-        [[[0.6, 0, 0.7], [0, 0.5, 0.8]], [[0.8, 0, -0.9], [0, 0.9, -1.2]],
-         [[1.2, 0, 0.0], [0, 1.3, 0.1]], [[0.3, 0, 0.95], [0, 0.3, -0.95]]],
-        np.float32,
-    )
-    errs.append(compare("border", imgs, border, out)[0])
+    errs.append(compare("off-image", imgs, off, out, expect=torch.zeros(4, CROP, CROP, 3, device=DEVICE))[0])
+    errs.append(compare("border", imgs, BORDER_THETA, out)[0])
     errs.append(compare("h_out=1", imgs, axis_aligned_theta(rng, 4), Size(1, CROP))[0])
     errs.append(compare("w_out=1", imgs, axis_aligned_theta(rng, 4), Size(CROP, 1))[0])
     return {"max_abs_err": max(errs), "times": times}
+
+
+# -- phase 2b -------------------------------------------------------------
+def backward_against_plain(card: str) -> dict:
+    rng = np.random.default_rng(SEED + 3)
+    errs = {"bwd_theta": 0.0, "bwd_images": 0.0}
+
+    def compare(name, images, theta, out_size):
+        images, theta = on_card(images), on_card(theta)
+        shape = (images.shape[0], out_size.height, out_size.width, images.shape[3])
+        g = on_card(rng.normal(size=shape).astype(np.float32))
+        want_img, want_theta = stn.sample_separable_bwd(images, theta, g, out_size)
+        got_theta = stn.separable_sampler_bwd_theta(images, theta, g)
+        again = stn.separable_sampler_bwd_theta(images, theta, g)
+        got_img = stn.separable_sampler_bwd_images(theta, g, tuple(images.shape))
+        torch.cuda.synchronize()
+        check(torch.equal(got_theta, again), f"K1 bwd_theta {name}: two runs differ")
+        e_t = float((got_theta - want_theta).abs().max())
+        s_t = float(want_theta.abs().max())
+        e_i = float((got_img - want_img).abs().max())
+        s_i = float(want_img.abs().max())
+        print(f"K1 bwd {name}: dtheta max_abs_err {e_t:.3e}, max_rel_err "
+              f"{e_t / max(s_t, 1e-30):.3e} (tol {K1_BWD_TOL['dtheta_rel']:g} of max |dtheta| {s_t:.4g}); "
+              f"dimages max_abs_err {e_i:.3e}, max_rel_err {e_i / max(s_i, 1e-30):.3e} "
+              f"(tol {K1_BWD_TOL['dimages_abs']:g} absolute, max |dimages| {s_i:.4g})")
+        check(e_t <= K1_BWD_TOL["dtheta_rel"] * s_t, f"K1 bwd_theta {name}: {e_t} > tol")
+        check(e_i <= K1_BWD_TOL["dimages_abs"], f"K1 bwd_images {name}: {e_i} > tol")
+        errs["bwd_theta"] = max(errs["bwd_theta"], e_t)
+        errs["bwd_images"] = max(errs["bwd_images"], e_i)
+        return images, theta, g
+
+    out = Size(CROP, CROP)
+    times = {}
+    for n in (TRAIN_BATCH, 128):
+        imgs = rng.uniform(size=(n, INPUT, INPUT, 3)).astype(np.float32)
+        images, theta, g = compare(f"N={n} {INPUT}^2->{CROP}^2", imgs, axis_aligned_theta(rng, n), out)
+        images_nchw, g_nchw = (t.permute(0, 3, 1, 2).contiguous() for t in (images, g))
+        theta_req = theta.clone().requires_grad_()
+        lib_out_t = library_crop(images_nchw, theta_req, out)
+        images_req = images_nchw.clone().requires_grad_()
+        lib_out_i = library_crop(images_req, theta, out)
+        calls = {
+            "bwd_theta": (
+                lambda: stn.separable_sampler_bwd_theta(images, theta, g),
+                lambda: stn.sample_separable_bwd(images, theta, g, out, need_images=False),
+                lambda: torch.autograd.grad(lib_out_t, theta_req, g_nchw, retain_graph=True),
+            ),
+            "bwd_images": (
+                lambda: stn.separable_sampler_bwd_images(theta, g, tuple(images.shape)),
+                lambda: stn.sample_separable_bwd(images, theta, g, out, need_theta=False),
+                lambda: torch.autograd.grad(lib_out_i, images_req, g_nchw, retain_graph=True),
+            ),
+        }
+        used = (slice(None), [0, 0, 1, 1], [0, 2, 1, 2])  # the entries the crop reads
+        lib_dtheta = calls["bwd_theta"][2]()[0][used]
+        plain_dtheta = calls["bwd_theta"][1]()[1][used]
+        print(f"K1 bwd N={n}: library grid_sample dtheta (scales and shifts) against the plain "
+              f"backward: max rel diff "
+              f"{float((lib_dtheta - plain_dtheta).abs().max() / plain_dtheta.abs().max()):.2e}")
+        for name, (kernel, plain, library) in calls.items():
+            ms, plain_ms, lib_ms = cuda_ms(kernel), cuda_ms(plain), cuda_ms(library)
+            bound_ms, bound_by = bound(name, images, theta, out)
+            times.setdefault(name, {})[n] = {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+                                             "bound_ms": bound_ms, "bound_by": bound_by}
+            print(f"K1 {name} N={n}: per call (CUDA events, host launch included) kernel "
+                  f"{ms * 1e3:.1f} us, plain {plain_ms * 1e3:.1f} us, library grid_sample backward "
+                  f"{lib_ms * 1e3:.1f} us; bound {bound_ms * 1e3:.2f} us ({bound_by}) ({card})")
+            print(f"K1 {name} N={n}: device time (profiler) kernel {fmt_us(device_us(kernel))}, "
+                  f"plain {fmt_us(device_us(plain))}, library {fmt_us(device_us(library))} ({card})")
+
+    ties = rng.uniform(size=(4, 129, 129, 3)).astype(np.float32)  # p_i = i: every position a tie
+    compare("identity 129^2->129^2 (all ties)", ties,
+            np.tile(np.array([[1, 0, 0], [0, 1, 0]], np.float32), (4, 1, 1)), Size(129, 129))
+    imgs = rng.uniform(size=(4, INPUT, INPUT, 3)).astype(np.float32)
+    compare("off-image", imgs, np.tile(np.array([[0.5, 0, 5.0], [0, 0.5, 5.0]], np.float32), (4, 1, 1)), out)
+    compare("border", imgs, BORDER_THETA, out)
+    compare("h_out=1", imgs, axis_aligned_theta(rng, 4), Size(1, CROP))
+    return {"max_abs_err": errs, "times": times}
 
 
 # -- phase 3 --------------------------------------------------------------
@@ -227,8 +423,7 @@ def write_log_dir(log_dir: str, calib: np.ndarray) -> None:
     bns = [m for m in loc.modules() if isinstance(m, nn.BatchNorm2d)]
     with torch.no_grad():
         for bn in bns:
-            bn.reset_running_stats()
-            bn.momentum = None  # cumulative average: one batch's statistics
+            bn.momentum = 1.0  # running statistics = this batch's
         loc.train()
         feats = loc.feature_extractor((x * 255.0 - loc.mean).permute(0, 3, 1, 2))
         for bn in bns:
@@ -248,7 +443,7 @@ def write_log_dir(log_dir: str, calib: np.ndarray) -> None:
 def serve(inf: LocalizerInference, frames: np.ndarray, card: str) -> dict:
     inf.localize_batch(frames[:BATCH])  # warm-up: cuDNN and allocator
     torch.cuda.synchronize()
-    sample_separable_kernel.launches = 0
+    reset_launches()
     n_forward = 0
     for frame in frames[:2]:
         boxes, rois, scores, _ = inf.localize(frame)
@@ -272,16 +467,26 @@ def serve(inf: LocalizerInference, frames: np.ndarray, card: str) -> dict:
         gated = raw_scores < inf.score_threshold
         check(np.array_equal(scores == 0, gated) and (boxes[gated] == 0).all(), "gating")
         kept_boxes.append(boxes[~gated, 0])
-    launches = sample_separable_kernel.launches
-    check(launches == n_forward, f"K1 launched {launches} times for {n_forward} forwards")
+    launches = read_launches()
+    check(launches == {"fwd": n_forward, "bwd_theta": 0, "bwd_images": 0},
+          f"serving launched {launches} for {n_forward} forwards")
     profile_batch(inf, frames[2 : 2 + BATCH], card)
     spread = float(np.concatenate(kept_boxes)[:, 3].std())
     print(f"slice: {n_forward} forwards (2 x localize, 3 x localize_batch({BATCH})), "
-          f"K1 launches {launches}, x_max spread {spread:.1f} px")
+          f"K1 launches {launches['fwd']}, x_max spread {spread:.1f} px")
     print(f"slice: localize_batch({BATCH}) images/s "
           f"{statistics.median(rates):.1f} (median; runs {', '.join(f'{r:.1f}' for r in rates)}) "
           f"({card})")
-    return {"launches": launches, "images_per_s": statistics.median(rates)}
+    return {"launches": launches["fwd"], "images_per_s": statistics.median(rates)}
+
+
+def print_trace(prof, what: str, wall_ms: float, card: str, top: int = 8) -> None:
+    events = device_events(prof)
+    busy_ms = sum(e.self_device_time_total for e in events) / 1e3
+    print(f"trace: {what} wall {wall_ms:.2f} ms, device busy {busy_ms:.2f} ms, "
+          f"idle share {max(0.0, 1 - busy_ms / wall_ms):.3f} ({card})")
+    for e in sorted(events, key=lambda e: -e.self_device_time_total)[:top]:
+        print(f"trace:   {e.self_device_time_total / 1e3:8.3f} ms x{e.count:<5d} {e.key[:90]}")
 
 
 def profile_batch(inf: LocalizerInference, batch: np.ndarray, card: str) -> None:
@@ -292,12 +497,7 @@ def profile_batch(inf: LocalizerInference, batch: np.ndarray, card: str) -> None
         start = time.perf_counter()
         inf.localize_batch(batch)
         wall_ms = (time.perf_counter() - start) * 1e3
-    events = device_events(prof)
-    busy_ms = sum(e.self_device_time_total for e in events) / 1e3
-    print(f"trace: localize_batch({len(batch)}) wall {wall_ms:.2f} ms, device busy "
-          f"{busy_ms:.2f} ms, idle share {max(0.0, 1 - busy_ms / wall_ms):.3f} ({card})")
-    for e in sorted(events, key=lambda e: -e.self_device_time_total)[:8]:
-        print(f"trace:   {e.self_device_time_total / 1e3:8.3f} ms x{e.count:<4d} {e.key[:90]}")
+    print_trace(prof, f"localize_batch({len(batch)})", wall_ms, card)
 
 
 # -- phase 4 --------------------------------------------------------------
@@ -308,19 +508,197 @@ def card_against_cpu(log_dir: str, inf: LocalizerInference, frames: np.ndarray) 
     with torch.inference_mode():
         rois_g, theta_g = inf.localizer(torch.from_numpy(two).to(DEVICE))
         rois_c, theta_c = cpu.localizer(torch.from_numpy(two))
+        rois_at_card_theta = sample_separable(torch.from_numpy(two), theta_g.cpu(), Size(CROP, CROP))
     bg, _, sg, _ = inf.localize_batch(two)
     bc, _, sc, _ = cpu.localize_batch(two)
     errs = {
         "theta": float((theta_g.cpu() - theta_c).abs().max()),
         "boxes_px": float(np.abs(bg - bc).max()),
-        "rois": float((rois_g.cpu() - rois_c).abs().max()),
+        "rois_at_card_theta": float((rois_g.cpu() - rois_at_card_theta).abs().max()),
         "scores": float(np.abs(sg - sc).max()),
     }
+    tol = dict(SLICE_TOL, rois_end_to_end=1e-5 + 2 * errs["theta"] * (INPUT - 1))
+    errs["rois_end_to_end"] = float((rois_g.cpu() - rois_c).abs().max())
     print("card vs CPU: " + ", ".join(
-        f"{k} {v:.3e} (tol {SLICE_TOL[k]:g})" for k, v in errs.items()))
+        f"{k} {v:.3e} (tol {tol[k]:.3g})" for k, v in errs.items()))
     for k, v in errs.items():
-        check(v <= SLICE_TOL[k], f"card vs CPU {k}: {v} > {SLICE_TOL[k]}")
+        check(v <= tol[k], f"card vs CPU {k}: {v} > {tol[k]}")
     return errs
+
+
+# -- phase 5 --------------------------------------------------------------
+def training_pools() -> dict:
+    """The pools ``bench.py`` trains on: uint8 scenes and crops, uniform
+    IoU labels (seed 0)."""
+    gen = np.random.default_rng(SEED)
+    return {
+        "unlabeled": {"unlabeled": gen.integers(0, 256, (POOL_SCENES, INPUT, INPUT, 3), dtype=np.uint8)},
+        "reference": {
+            "real": gen.integers(0, 256, (POOL_CROPS, CROP, CROP, 3), dtype=np.uint8),
+            "labels": gen.uniform(size=(POOL_CROPS, 1)).astype(np.float32),
+        },
+    }
+
+
+def build_pair(device) -> tuple[nn.Module, nn.Module]:
+    loc = build_model("Localizer", **MANIFEST["localizer"]["kwargs"])
+    return loc.to(device), build_assessor(MANIFEST["assessor"], loc).to(device)
+
+
+def train_slice(pools: dict, card: str) -> dict:
+    torch.manual_seed(SEED)
+    loc, ass = build_pair(DEVICE)
+    loc_state, ass_state = create_train_state(loc, LR), create_train_state(ass, LR)
+    head0 = loc.param_predictor.bias.detach().clone()
+    ass0 = ass.Dense_0.weight.detach().clone()
+    config = AlternatingConfig(image_size=Size(INPUT, INPUT))
+    step_fn = functools.partial(pooled_step, steps_per_call=STEPS_PER_CALL, config=config)
+    chunks = device_chunk_batches(pools, TRAIN_BATCH, STEPS_PER_CALL, seed=SEED, device=DEVICE)
+    n_steps = STEPS_PER_CALL * (1 + TIMED_CHUNKS)
+    nbytes = sum(t.numel() * t.element_size() for g in next(chunks)["pools"].values() for t in g.values())
+    print(f"train: pools on the card {nbytes / 2**20:.1f} MiB ({POOL_SCENES} scenes, {POOL_CROPS} crops, uint8)")
+    with tempfile.TemporaryDirectory() as log_dir:
+        checkpoint.save_manifest(log_dir, MANIFEST)
+        trainer = Trainer(
+            step_fn, loc_state, ass_state, chunks, log_dir, max_iterations=n_steps,
+            generator=torch.Generator(device=DEVICE).manual_seed(SEED),
+            config={"batch_size": TRAIN_BATCH, "steps_per_call": STEPS_PER_CALL, "device": card},
+            log_interval=STEPS_PER_CALL, steps_per_call=STEPS_PER_CALL, print_report=False,
+        )
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        start = time.perf_counter()
+        loc_state, ass_state = trainer.run()
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - start
+        launches = read_launches()
+        check(launches == {"fwd": n_steps, "bwd_theta": n_steps, "bwd_images": 0},
+              f"training launched {launches} for {n_steps} steps")
+        log = MetricsLog.read(log_dir)
+        check(len(log) == 1 + TIMED_CHUNKS, f"{len(log)} log entries")
+        for e in log:
+            check(np.isfinite(e["loss_localizer"]) and np.isfinite(e["loss_dis"]), f"losses finite: {e}")
+        check(not torch.equal(loc.param_predictor.bias, head0), "the head's bias moved")
+        check(not torch.equal(ass.Dense_0.weight, ass0), "the assessor's head weight moved")
+        rates = [e["images_per_sec"] for e in log[1:]]
+        peak_gib = torch.cuda.max_memory_allocated() / 2**30
+        for e in log:
+            print(f"train: iteration {e['iteration']} loss_localizer {e['loss_localizer']:.5f} "
+                  f"loss_dis {e['loss_dis']:.5f} y_fake_mean {e['y_fake_mean']:.4f} "
+                  f"y_real_mean {e['y_real_mean']:.4f} images/s {e['images_per_sec']:.1f}")
+        print(f"train: {n_steps} steps ({1 + TIMED_CHUNKS} chunks of {STEPS_PER_CALL}, batch {TRAIN_BATCH}) "
+              f"in {wall_s:.2f} s; launches {launches}; peak memory {peak_gib:.2f} GiB")
+        print(f"train: images/s at batch {TRAIN_BATCH}, timed chunks: "
+              f"{', '.join(f'{r:.1f}' for r in rates)} (median {statistics.median(rates):.1f}) ({card})")
+        profile_chunk(loc_state, ass_state, next(chunks), step_fn, card)
+
+        inf = LocalizerInference(log_dir, device=DEVICE, use_assessor=True)
+        last = checkpoint.list_snapshots(log_dir, "Localizer_")[-1][0]
+        check(last == n_steps, f"the last snapshot is Localizer_{last}.pt")
+        frames = pools["unlabeled"]["unlabeled"][:8].astype(np.float32) / 255.0
+        boxes, rois, scores, _ = inf.localize_batch(frames)
+        check(boxes.shape == (8, 1, 4) and rois.shape == (8, CROP, CROP, 3) and scores.shape == (8,),
+              "trained snapshot: serving shapes")
+        check(np.isfinite(boxes).all() and np.isfinite(rois).all() and np.isfinite(scores).all(),
+              "trained snapshot: serving finite")
+        print(f"train: served Localizer_{n_steps}.pt through LocalizerInference on {DEVICE}: "
+              f"8 frames, mean score {float(np.mean(scores)):.4f}")
+    return {"launches": launches, "images_per_s": statistics.median(rates)}
+
+
+def profile_chunk(loc_state, ass_state, chunk, step_fn, card: str) -> None:
+    """One traced chunk of ``STEPS_PER_CALL`` steps (after the counted run)."""
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        start = time.perf_counter()
+        _, _, metrics = step_fn(loc_state, ass_state, chunk, None)
+        float(metrics["loss_localizer"])
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - start) * 1e3
+    print_trace(prof, f"pooled_step({STEPS_PER_CALL} x batch {TRAIN_BATCH})", wall_ms, card, top=12)
+
+
+# -- phase 6 --------------------------------------------------------------
+def step_against_cpu(pools: dict) -> dict:
+    """Two alternating steps on the card and on the CPU from the same
+    weights and batches (batch 4). Step 1's backbone gradient is exactly 0
+    behind the zero-initialised head, so step 2 is compared too."""
+    torch.manual_seed(SEED + 4)
+    models = {"cpu": build_pair("cpu")}
+    models[DEVICE] = tuple(copy.deepcopy(m).to(DEVICE) for m in models["cpu"])
+    rng = np.random.default_rng(SEED + 5)
+    batches = []
+    for _ in range(2):
+        si = rng.choice(POOL_SCENES, 4, replace=False)
+        ci = rng.choice(POOL_CROPS, 4, replace=False)
+        batches.append({"unlabeled": pools["unlabeled"]["unlabeled"][si],
+                        "real": pools["reference"]["real"][ci],
+                        "labels": pools["reference"]["labels"][ci]})
+    config = AlternatingConfig(image_size=Size(INPUT, INPUT))
+    out = {}
+    for device, (loc, ass) in models.items():
+        dthetas, rois_grads = [], []
+
+        def capture(module, inputs, output, dthetas=dthetas, rois_grads=rois_grads):
+            output[0].register_hook(lambda g: rois_grads.append(g.detach().cpu()))
+            output[1].register_hook(lambda g: dthetas.append(g.detach().cpu()))
+
+        hook = loc.register_forward_hook(capture)
+        states = (create_train_state(loc, LR), create_train_state(ass, LR))
+        metrics = []
+        for batch in batches:
+            *states, m = alternating_step(*states, {k: torch.from_numpy(v).to(device) for k, v in batch.items()},
+                                          None, config)
+            metrics.append({k: float(v) for k, v in m.items()})
+        hook.remove()
+        out[device] = {
+            "metrics": metrics, "dtheta": dthetas, "rois_grad": rois_grads,
+            "head_grad": loc.param_predictor.weight.grad.detach().cpu(),
+            "stem_grad": loc.feature_extractor.Conv_0.weight.grad.detach().cpu(),
+            "stats": {k: v.detach().cpu() for k, v in loc.state_dict().items() if "running" in k},
+        }
+    cpu, card = out["cpu"], out[DEVICE]
+
+    def rel(a, b):
+        return float((a - b).abs().max() / b.abs().max().clamp(min=1e-30))
+
+    diffs = {}
+    for s in range(2):
+        for k in ("loss_localizer", "loss_dis"):
+            diffs[f"step{s + 1} {k}"] = ("loss", abs(card["metrics"][s][k] - cpu["metrics"][s][k])
+                                         / max(abs(cpu["metrics"][s][k]), 1e-30))
+        diffs[f"step{s + 1} dtheta"] = ("dtheta", rel(card["dtheta"][s], cpu["dtheta"][s]))
+    diffs["step2 head grad"] = ("head_grad", rel(card["head_grad"], cpu["head_grad"]))
+    diffs["step2 stem conv grad"] = ("stem_grad", rel(card["stem_grad"], cpu["stem_grad"]))
+    diffs["step2 BN running stats"] = ("bn_stats", max(rel(card["stats"][k], v) for k, v in cpu["stats"].items()))
+    print("train card vs CPU (relative): " + ", ".join(
+        f"{name} {v:.3e} (tol {STEP_TOL[kind]:g})" for name, (kind, v) in diffs.items()))
+    print("train card vs CPU, crops' cotangent (not held, see STEP_TOL): " + ", ".join(
+        f"step{s + 1} max {rel(card['rois_grad'][s], cpu['rois_grad'][s]):.3e}, L2 "
+        f"{float((card['rois_grad'][s] - cpu['rois_grad'][s]).norm() / cpu['rois_grad'][s].norm()):.3e}"
+        for s in range(2)))
+    for name, (kind, v) in diffs.items():
+        check(v <= STEP_TOL[kind], f"train card vs CPU {name}: {v} > {STEP_TOL[kind]}")
+    check(float(cpu["dtheta"][0].abs().max()) > 0, "theta gets a gradient")
+    return {name: v for name, (_, v) in diffs.items()}
+
+
+def kernel_entry(name: str, replaces: str, launches: int, err: float, t: dict) -> dict:
+    return {
+        "name": name,
+        "route": "cuda",
+        "source": "loans_tpu_torch/ops/csrc/separable_sampler.cu",
+        "replaces": replaces,
+        "launches": launches,
+        "max_abs_err": err,
+        "ms": t["ms"],
+        "plain_ms": t["plain_ms"],
+        "bound_ms": t["bound_ms"],
+        "bound_by": t["bound_by"],
+        "library_ms": t["library_ms"],
+    }
 
 
 def main() -> None:
@@ -329,24 +707,26 @@ def main() -> None:
     set_precision()
     card = environment()
     k1 = kernel_against_plain(card)
+    k1_bwd = backward_against_plain(card)
     frames = scenes(np.random.default_rng(SEED + 1), 2 + 3 * BATCH, INPUT)
     calib = scenes(np.random.default_rng(SEED + 2), BATCH, INPUT)
     with tempfile.TemporaryDirectory() as log_dir:
         write_log_dir(log_dir, calib)
         inf = LocalizerInference(log_dir, device=DEVICE, use_assessor=True)
-        served = serve(inf, frames, card)
+        serve(inf, frames, card)
         card_against_cpu(log_dir, inf, frames)
-    ms, plain_ms = k1["times"][BATCH]
-    print(json.dumps({"kernels": [{
-        "name": "separable_sampler_fwd",
-        "route": "cuda",
-        "source": "loans_tpu_torch/ops/csrc/separable_sampler.cu",
-        "replaces": "loans_tpu/ops/stn.py:421",
-        "launches": served["launches"],
-        "max_abs_err": k1["max_abs_err"],
-        "ms": ms,
-        "plain_ms": plain_ms,
-    }]}))
+    pools = training_pools()
+    trained = train_slice(pools, card)
+    step_against_cpu(pools)
+    launches = trained["launches"]
+    print(json.dumps({"kernels": [
+        kernel_entry("separable_sampler_fwd", "loans_tpu/ops/stn.py:421", launches["fwd"],
+                     k1["max_abs_err"], k1["times"][TRAIN_BATCH]),
+        kernel_entry("separable_sampler_bwd_theta", "loans_tpu/ops/stn.py:641", launches["bwd_theta"],
+                     k1_bwd["max_abs_err"]["bwd_theta"], k1_bwd["times"]["bwd_theta"][TRAIN_BATCH]),
+        kernel_entry("separable_sampler_bwd_images", "loans_tpu/ops/stn.py:641", launches["bwd_images"],
+                     k1_bwd["max_abs_err"]["bwd_images"], k1_bwd["times"]["bwd_images"][TRAIN_BATCH]),
+    ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

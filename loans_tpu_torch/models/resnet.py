@@ -7,7 +7,9 @@ Architectural details kept from the JAX reference:
   * the stem max-pool is chainer's ``cover_all`` mode (3x3/2 with -inf
     padding on the bottom/right), which yields 56x56 from 224 inputs;
   * BatchNorm uses chainer defaults: eps 2e-5 and running-average weight
-    0.9 (torch ``momentum=0.1``); eval uses the running statistics;
+    0.9 (torch ``momentum=0.1``); train mode folds the biased batch
+    variance into the running variance, as flax does (``BatchNorm2d``);
+    eval uses the running statistics;
   * bottleneck downsampling strides live on the first 1x1 conv
     (caffe-style).
 
@@ -44,9 +46,36 @@ _SMALL = (32, 44, 56, 110)
 _BOTTLENECK = (19, 50, 101, 152)
 
 
-def batch_norm(ch: int) -> nn.BatchNorm2d:
+class BatchNorm2d(nn.BatchNorm2d):
+    """``nn.BatchNorm2d`` with flax's training statistics.
+
+    Train mode normalizes with the biased batch variance, as
+    ``nn.BatchNorm2d`` does, and also folds the *biased* variance into
+    ``running_var``, as flax's ``BatchNorm`` does (``nn.BatchNorm2d``
+    folds the unbiased one, n/(n-1) larger for n = batch*H*W values per
+    channel). Eval mode is ``nn.BatchNorm2d``'s.
+    """
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training:
+            return super().forward(x)
+        n = x.numel() // x.shape[1]
+        # F.batch_norm leaves momentum * unbiased_var in this zeroed buffer
+        # (and updates running_mean itself); rescale it to the biased one.
+        var_part = torch.zeros_like(self.running_var)
+        y = F.batch_norm(
+            x, self.running_mean, var_part, self.weight, self.bias,
+            True, self.momentum, self.eps,
+        )
+        with torch.no_grad():
+            self.running_var.mul_(1.0 - self.momentum).add_(var_part, alpha=(n - 1) / n)
+            self.num_batches_tracked.add_(1)
+        return y
+
+
+def batch_norm(ch: int) -> BatchNorm2d:
     """BatchNorm with chainer defaults (eps 2e-5, decay 0.9)."""
-    return nn.BatchNorm2d(ch, eps=2e-5, momentum=0.1)
+    return BatchNorm2d(ch, eps=2e-5, momentum=0.1)
 
 
 def _add(module: nn.Module, child: nn.Module) -> nn.Module:

@@ -2,7 +2,8 @@
 JAX, flax or ``loans_tpu`` dependencies installed.
 
 A subprocess blocks ``jax``, ``flax`` and ``loans_tpu`` imports, imports
-every module of ``loans_tpu_torch`` and serves a tiny log dir on the CPU.
+every module of ``loans_tpu_torch``, serves a tiny log dir on the CPU and
+runs one tiny alternating training step.
 It also checks that importing the package never runs ``nvcc`` and that
 the CUDA kernel refuses CPU tensors.
 """
@@ -68,6 +69,22 @@ except ValueError as e:
 else:
     raise AssertionError("the kernel accepted a CPU tensor")
 assert sample_separable_kernel.launches == 0
+
+from loans_tpu_torch.train import AlternatingConfig, alternating_step, create_train_state
+loc_s, ass_s = create_train_state(loc), create_train_state(ass)
+gen = torch.Generator().manual_seed(0)
+batch = {
+    "real": torch.randint(0, 256, (2, 8, 8, 3), dtype=torch.uint8, generator=gen),
+    "labels": torch.rand(2, 1, generator=gen),
+    "unlabeled": torch.randint(0, 256, (2, 32, 32, 3), dtype=torch.uint8, generator=gen),
+}
+head0 = loc.param_predictor.bias.detach().clone()
+loc_s, ass_s, metrics = alternating_step(
+    loc_s, ass_s, batch, gen, AlternatingConfig(image_size=Size(32, 32)))
+assert loc_s.step == 1 and ass_s.step == 1
+assert all(np.isfinite(float(v)) for v in metrics.values()), metrics
+assert not torch.equal(loc.param_predictor.bias, head0)
+assert sample_separable_kernel.launches_bwd_theta == 0
 assert not spawned, spawned
 assert not [m for m, v in sys.modules.items() if v is not None and m.split(".")[0] in ("jax", "flax", "loans_tpu")]
 print("NO_JAX_OK")
