@@ -8,7 +8,7 @@ Phases, one line or more each; any failure exits non-zero:
 
 1. environment: the card's name and power limit (``nvidia-smi``), the
    torch / CUDA / nvcc versions, and the time to build the CUDA kernels
-   from this checkout;
+   from this checkout (one ``nvcc`` per source, all at once);
 2. the forward kernel against its plain PyTorch version on the card (TF32
    off), with its time, the plain version's, the library yardstick's
    (``F.grid_sample`` over ``F.affine_grid``) and the bound (CUDA events,
@@ -27,12 +27,23 @@ Phases, one line or more each; any failure exits non-zero:
    timed chunks, with each kernel's launches checked, a profiled chunk,
    and the last snapshot served through ``LocalizerInference``;
 6. two training steps on the card against the CPU from the same weights
-   (batch 4, full width).
+   (batch 4, full width);
+7. the rotated crop's three kernels (K2: forward, d theta, d images)
+   against their plain versions on the card, ties and NaN included, with
+   their times, the plain versions', ``F.grid_sample``'s and the bounds;
+8. rotation-dropout training: phase 5 at ``rotation_dropout_ratio=0.5`` on
+   ``sampler="rotated_pallas"``, with K2's launches checked and K1's 0,
+   the head's off-diagonal bias moved, and the snapshot served through
+   K2's forward;
+9. two rotated training steps (ratio 1.0) on the card (``rotated_pallas``)
+   against the CPU (``rotated``) from the same weights (batch 4, full
+   width).
 
-The line before the last is a JSON object of the kernels: launches in
-phase 5, errors from phases 2 and 2b, times and bounds at the training
-batch. The last line is ``{"ok": true, "device": {...}}``. Without a CUDA
-card it exits with an error before printing either.
+The line before the last is a JSON object of the six kernels: launches in
+phase 5 (K1) and phase 8 (K2), errors from phases 2, 2b and 7, times and
+bounds at the training batch. The last line is ``{"ok": true, "device":
+{...}}``. Without a CUDA card it exits with an error before printing
+either.
 """
 
 from __future__ import annotations
@@ -54,7 +65,7 @@ from loans_tpu_torch.data.device_data import device_chunk_batches
 from loans_tpu_torch.inference.localizer import LocalizerInference, set_precision
 from loans_tpu_torch.ops import _cuda, stn
 from loans_tpu_torch.ops.geometry import Size
-from loans_tpu_torch.ops.stn import sample_separable, sample_separable_kernel
+from loans_tpu_torch.ops.stn import sample_rotated_kernel, sample_separable, sample_separable_kernel
 from loans_tpu_torch.train import (
     AlternatingConfig,
     MetricsLog,
@@ -78,6 +89,11 @@ K1_TOL = 1e-5  # absolute, images in [0, 1]
 # sums a few products per pixel, with float atomics in run-to-run order,
 # against cotangents of order 1
 K1_BWD_TOL = {"dtheta_rel": 1e-5, "dimages_abs": 1e-5}
+# K2 against its plain version on the card, the same reasons: the forward
+# runs the plain version's float32 operations in its order (1e-5 absolute
+# on images in [0, 1]); d theta sums 5625 pixels' products per image in a
+# fixed tree against torch's reductions; d images as K1's
+K2_TOL = {"fwd_abs": 1e-5, "dtheta_rel": 1e-5, "dimages_abs": 1e-5}
 # card against CPU: float32 on both, sums in another order. The crop is
 # held at the card's theta (the kernel against the CPU's plain crop, as in
 # phase 2); end to end, a theta error d moves a sample by up to
@@ -121,7 +137,12 @@ MANIFEST = {
     "assessor": {"model": "ResnetAssessor", "kwargs": {}},
     "snapshot_names": ["Localizer", "ResnetAssessor"],
 }
+# rotation-dropout training and serving (phases 8 and 9): the same model
+# at the JAX sampler bench's rotation ratio, on the rotated crop's kernels
+ROTATED_KWARGS = {"rotation_dropout_ratio": 0.5, "sampler": "rotated_pallas"}
 COUNTERS = {"fwd": "launches", "bwd_theta": "launches_bwd_theta", "bwd_images": "launches_bwd_images"}
+KERNELS = {"K1": sample_separable_kernel, "K2": sample_rotated_kernel}
+NO_LAUNCHES = {"fwd": 0, "bwd_theta": 0, "bwd_images": 0}
 
 
 def check(ok: bool, what: str) -> None:
@@ -130,12 +151,31 @@ def check(ok: bool, what: str) -> None:
 
 
 def reset_launches() -> None:
-    for attr in COUNTERS.values():
-        setattr(sample_separable_kernel, attr, 0)
+    for owner in KERNELS.values():
+        for attr in COUNTERS.values():
+            setattr(owner, attr, 0)
 
 
-def read_launches() -> dict[str, int]:
-    return {k: getattr(sample_separable_kernel, attr) for k, attr in COUNTERS.items()}
+def read_launches() -> dict[str, dict[str, int]]:
+    """Launches of each kernel since ``reset_launches``, by crop."""
+    return {name: {k: getattr(owner, attr) for k, attr in COUNTERS.items()}
+            for name, owner in KERNELS.items()}
+
+
+def with_kwargs(**kwargs) -> dict:
+    """``MANIFEST`` with these localizer kwargs changed."""
+    loc = {"model": "Localizer", "kwargs": {**MANIFEST["localizer"]["kwargs"], **kwargs}}
+    return {**MANIFEST, "localizer": loc}
+
+
+def max_err(got: torch.Tensor, want: torch.Tensor) -> float:
+    """Largest absolute difference; inf unless both are NaN at the same
+    entries, which are left out."""
+    nan = torch.isnan(want)
+    if not torch.equal(torch.isnan(got), nan):
+        return float("inf")
+    diff = (got - want)[~nan].abs()
+    return float(diff.max()) if diff.numel() else 0.0
 
 
 def cuda_ms(fn, reps: int = 25) -> float:
@@ -209,10 +249,11 @@ def environment() -> str:
     print(f"env: torch {torch.__version__}, CUDA {torch.version.cuda}, nvcc {nvcc}, "
           f"device {torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
     start = time.perf_counter()
+    _cuda.build_all()
     for name in _cuda.SIGNATURES:
         _cuda.load_library(name)
     build_s = time.perf_counter() - start
-    print(f"build: {len(_cuda.SIGNATURES)} CUDA libraries in {build_s:.2f} s")
+    print(f"build: {len(_cuda.SIGNATURES)} CUDA libraries in {build_s:.2f} s (one nvcc each, in parallel)")
     for name in _cuda.SIGNATURES:
         log = _cuda.library_path(name).with_suffix(".log").read_text()
         for line in log.splitlines():
@@ -407,6 +448,141 @@ def backward_against_plain(card: str) -> dict:
     return {"max_abs_err": errs, "times": times}
 
 
+# -- phase 7 --------------------------------------------------------------
+def rotated_bound(kernel: str, images: torch.Tensor, theta: torch.Tensor, out_size: Size) -> tuple[float, str]:
+    """``bound`` for the rotated crop (K2): the region read is the union
+    of this run's live 4-tap sets (a tap is live where its hat weight is
+    non-zero; hat' is non-zero only there), not a rows x columns product.
+    Operations per live tap and channel: a multiply and an add in its row,
+    and the row's weight (forward); hat and hat' products and their sums,
+    and g's (d theta); two products and the atomic add (d images)."""
+    n, h, w, c = images.shape
+    px, py = stn._rotated_positions(theta, out_size, h, w)
+    xs, ys = stn._axis_taps(px, w), stn._axis_taps(py, h)
+    touched = torch.zeros(n * h * w, dtype=torch.bool, device=images.device)
+    base = torch.arange(n, device=images.device)[:, None, None] * (h * w)
+    taps = 0.0
+    for ty in ys:
+        for tx in xs:
+            live = (ty.hat != 0) & (tx.hat != 0)
+            touched[(base + ty.index * w + tx.index)[live]] = True
+            taps += float(live.sum())
+    region = float(touched.sum()) * c * 4
+    pixels = n * out_size.height * out_size.width
+    crop_bytes, theta_bytes = pixels * c * 4, n * 24
+    if kernel == "fwd":  # read the region, write the crop
+        nbytes, flops = region + crop_bytes + theta_bytes, 4 * taps * c
+    elif kernel == "bwd_theta":  # read the region and g, write d theta
+        nbytes, flops = region + crop_bytes + 2 * theta_bytes, 8 * taps * c + 4 * pixels * c + 12 * pixels
+    else:  # read g, write all of d images
+        nbytes, flops = crop_bytes + n * h * w * c * 4 + theta_bytes, 3 * taps * c
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / FP32_FLOPS_PER_S
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
+def rotated_theta(rng, n):
+    theta = axis_aligned_theta(rng, n)
+    theta[:, 0, 1] = rng.uniform(-0.3, 0.3, n)
+    theta[:, 1, 0] = rng.uniform(-0.3, 0.3, n)
+    return theta
+
+
+def rotated_against_plain(card: str) -> dict:
+    """K2's forward, d theta and d images against ``sample_rotated`` and
+    ``sample_rotated_bwd`` on the card."""
+    rng = np.random.default_rng(SEED + 7)
+    errs = {"fwd": 0.0, "bwd_theta": 0.0, "bwd_images": 0.0}
+
+    def compare(name, images, theta, out_size, ties=False):
+        images, theta = on_card(images), on_card(theta)
+        shape = (images.shape[0], out_size.height, out_size.width, images.shape[3])
+        g = on_card(rng.normal(size=shape).astype(np.float32))
+        got = sample_rotated_kernel(images, theta, out_size)
+        want = stn.sample_rotated(images, theta, out_size)
+        want_img, want_theta = stn.sample_rotated_bwd(images, theta, g, out_size)
+        got_theta = stn.rotated_sampler_bwd_theta(images, theta, g)
+        again = stn.rotated_sampler_bwd_theta(images, theta, g)
+        got_img = stn.rotated_sampler_bwd_images(theta, g, tuple(images.shape))
+        torch.cuda.synchronize()
+        check(torch.equal(got_theta.nan_to_num(), again.nan_to_num()), f"K2 bwd_theta {name}: two runs differ")
+        e_f, e_t, e_i = max_err(got, want), max_err(got_theta, want_theta), max_err(got_img, want_img)
+        s_t = float(want_theta.nan_to_num().abs().max())
+        print(f"K2 {name}: fwd max_abs_err {e_f:.3e} (tol {K2_TOL['fwd_abs']:g}); dtheta max_abs_err "
+              f"{e_t:.3e}, max_rel_err {e_t / max(s_t, 1e-30):.3e} (tol {K2_TOL['dtheta_rel']:g} of max "
+              f"|dtheta| {s_t:.4g}); dimages max_abs_err {e_i:.3e} (tol {K2_TOL['dimages_abs']:g})")
+        check(e_f <= K2_TOL["fwd_abs"], f"K2 fwd {name}: {e_f} > tol")
+        check(e_t <= K2_TOL["dtheta_rel"] * s_t, f"K2 bwd_theta {name}: {e_t} > tol")
+        check(e_i <= K2_TOL["dimages_abs"], f"K2 bwd_images {name}: {e_i} > tol")
+        if ties:  # every position on a pixel: the dense VJP's rule moves nothing
+            check(not got_theta.any() and not want_theta.any(), f"K2 {name}: d theta not exactly 0")
+            print(f"K2 {name}: d theta exactly 0 in the kernel and the plain version")
+        for k, e in (("fwd", e_f), ("bwd_theta", e_t), ("bwd_images", e_i)):
+            errs[k] = max(errs[k], e)
+        return images, theta, g
+
+    out = Size(CROP, CROP)
+    times = {}
+    for n in (BATCH, TRAIN_BATCH, 128):
+        imgs = rng.uniform(size=(n, INPUT, INPUT, 3)).astype(np.float32)
+        images, theta, g = compare(f"N={n} {INPUT}^2->{CROP}^2", imgs, rotated_theta(rng, n), out)
+        if n == BATCH:
+            continue
+        images_nchw, g_nchw = (t.permute(0, 3, 1, 2).contiguous() for t in (images, g))
+        theta_req = theta.clone().requires_grad_()
+        lib_out_t = library_crop(images_nchw, theta_req, out)
+        images_req = images_nchw.clone().requires_grad_()
+        lib_out_i = library_crop(images_req, theta, out)
+        lib_err = float((library_crop(images_nchw, theta, out).permute(0, 2, 3, 1)
+                         - sample_rotated_kernel(images, theta, out)).abs().max())
+        lib_dtheta = torch.autograd.grad(lib_out_t, theta_req, g_nchw, retain_graph=True)[0]
+        plain_dtheta = stn.sample_rotated_bwd(images, theta, g, out, need_images=False)[1]
+        print(f"K2 N={n}: library grid_sample against the kernel: crop max abs diff {lib_err:.2e}, "
+              f"dtheta max rel diff {float((lib_dtheta - plain_dtheta).abs().max() / plain_dtheta.abs().max()):.2e}")
+        calls = {
+            "fwd": (
+                lambda: sample_rotated_kernel(images, theta, out),
+                lambda: stn.sample_rotated(images, theta, out),
+                lambda: library_crop(images_nchw, theta, out),
+            ),
+            "bwd_theta": (
+                lambda: stn.rotated_sampler_bwd_theta(images, theta, g),
+                lambda: stn.sample_rotated_bwd(images, theta, g, out, need_images=False),
+                lambda: torch.autograd.grad(lib_out_t, theta_req, g_nchw, retain_graph=True),
+            ),
+            "bwd_images": (
+                lambda: stn.rotated_sampler_bwd_images(theta, g, tuple(images.shape)),
+                lambda: stn.sample_rotated_bwd(images, theta, g, out, need_theta=False),
+                lambda: torch.autograd.grad(lib_out_i, images_req, g_nchw, retain_graph=True),
+            ),
+        }
+        for name, (kernel, plain, library) in calls.items():
+            ms, plain_ms, lib_ms = cuda_ms(kernel), cuda_ms(plain), cuda_ms(library)
+            bound_ms, bound_by = rotated_bound(name, images, theta, out)
+            times.setdefault(name, {})[n] = {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+                                             "bound_ms": bound_ms, "bound_by": bound_by}
+            match = "rotated_sampler" if name == "fwd" else ""
+            print(f"K2 {name} N={n}: per call (CUDA events, host launch included) kernel "
+                  f"{ms * 1e3:.1f} us, plain {plain_ms * 1e3:.1f} us, library grid_sample "
+                  f"{lib_ms * 1e3:.1f} us; bound {bound_ms * 1e3:.2f} us ({bound_by}) ({card})")
+            print(f"K2 {name} N={n}: device time (profiler) kernel {fmt_us(device_us(kernel, match=match))}, "
+                  f"plain {fmt_us(device_us(plain))}, library {fmt_us(device_us(library))} ({card})")
+
+    ties = rng.uniform(size=(4, 129, 129, 3)).astype(np.float32)  # p = pixel: every position a tie
+    compare("identity 129^2->129^2 (all ties)", ties,
+            np.tile(np.array([[1, 0, 0], [0, 1, 0]], np.float32), (4, 1, 1)), Size(129, 129), ties=True)
+    imgs = rng.uniform(size=(4, INPUT, INPUT, 3)).astype(np.float32)
+    border = BORDER_THETA.copy()
+    border[:, 0, 1], border[:, 1, 0] = [0.2, -0.25, 0.3, 0.1], [0.15, 0.2, -0.3, -0.1]
+    compare("border", imgs, border, out)
+    compare("off-image", imgs, np.tile(np.array([[0.5, 0.1, 5.0], [0.1, 0.5, 5.0]], np.float32), (4, 1, 1)), out)
+    compare("h_out=1", imgs, rotated_theta(rng, 4), Size(1, CROP))
+    compare("w_out=1", imgs, rotated_theta(rng, 4), Size(CROP, 1))
+    nan = rotated_theta(rng, 4)
+    nan[1, 0, 1], nan[2, 1, 1] = np.nan, np.nan  # NaN px everywhere in image 1, NaN py in image 2
+    compare("NaN theta", imgs, nan, out)
+    return {"max_abs_err": errs, "times": times}
+
+
 # -- phase 3 --------------------------------------------------------------
 def write_log_dir(log_dir: str, calib: np.ndarray) -> None:
     """Seeded port models as ``.pt`` snapshots. BatchNorm statistics are
@@ -468,8 +644,9 @@ def serve(inf: LocalizerInference, frames: np.ndarray, card: str) -> dict:
         check(np.array_equal(scores == 0, gated) and (boxes[gated] == 0).all(), "gating")
         kept_boxes.append(boxes[~gated, 0])
     launches = read_launches()
-    check(launches == {"fwd": n_forward, "bwd_theta": 0, "bwd_images": 0},
+    check(launches == {"K1": {**NO_LAUNCHES, "fwd": n_forward}, "K2": NO_LAUNCHES},
           f"serving launched {launches} for {n_forward} forwards")
+    launches = launches["K1"]
     profile_batch(inf, frames[2 : 2 + BATCH], card)
     spread = float(np.concatenate(kept_boxes)[:, 3].std())
     print(f"slice: {n_forward} forwards (2 x localize, 3 x localize_batch({BATCH})), "
@@ -526,7 +703,7 @@ def card_against_cpu(log_dir: str, inf: LocalizerInference, frames: np.ndarray) 
     return errs
 
 
-# -- phase 5 --------------------------------------------------------------
+# -- phases 5 and 8 ---------------------------------------------------------
 def training_pools() -> dict:
     """The pools ``bench.py`` trains on: uint8 scenes and crops, uniform
     IoU labels (seed 0)."""
@@ -540,14 +717,21 @@ def training_pools() -> dict:
     }
 
 
-def build_pair(device) -> tuple[nn.Module, nn.Module]:
-    loc = build_model("Localizer", **MANIFEST["localizer"]["kwargs"])
-    return loc.to(device), build_assessor(MANIFEST["assessor"], loc).to(device)
+def build_pair(device, manifest: dict = MANIFEST) -> tuple[nn.Module, nn.Module]:
+    loc = build_model("Localizer", **manifest["localizer"]["kwargs"])
+    return loc.to(device), build_assessor(manifest["assessor"], loc).to(device)
 
 
-def train_slice(pools: dict, card: str) -> dict:
+def train_slice(pools: dict, card: str, manifest: dict = MANIFEST) -> dict:
+    """``Trainer`` over ``pooled_step`` with ``manifest``'s models; checks
+    that the crop's kernels (K2 at a non-zero rotation ratio, else K1)
+    carried every step and the other crop's never ran, then serves the last
+    snapshot on the card."""
+    rotated = manifest["localizer"]["kwargs"]["rotation_dropout_ratio"] > 0
+    used, unused = ("K2", "K1") if rotated else ("K1", "K2")
+    tag = "train rotated" if rotated else "train"
     torch.manual_seed(SEED)
-    loc, ass = build_pair(DEVICE)
+    loc, ass = build_pair(DEVICE, manifest)
     loc_state, ass_state = create_train_state(loc, LR), create_train_state(ass, LR)
     head0 = loc.param_predictor.bias.detach().clone()
     ass0 = ass.Dense_0.weight.detach().clone()
@@ -556,12 +740,13 @@ def train_slice(pools: dict, card: str) -> dict:
     chunks = device_chunk_batches(pools, TRAIN_BATCH, STEPS_PER_CALL, seed=SEED, device=DEVICE)
     n_steps = STEPS_PER_CALL * (1 + TIMED_CHUNKS)
     nbytes = sum(t.numel() * t.element_size() for g in next(chunks)["pools"].values() for t in g.values())
-    print(f"train: pools on the card {nbytes / 2**20:.1f} MiB ({POOL_SCENES} scenes, {POOL_CROPS} crops, uint8)")
+    print(f"{tag}: pools on the card {nbytes / 2**20:.1f} MiB ({POOL_SCENES} scenes, {POOL_CROPS} crops, uint8); "
+          f"localizer {manifest['localizer']['kwargs']}")
+    generator = torch.Generator(device=DEVICE).manual_seed(SEED)
     with tempfile.TemporaryDirectory() as log_dir:
-        checkpoint.save_manifest(log_dir, MANIFEST)
+        checkpoint.save_manifest(log_dir, manifest)
         trainer = Trainer(
-            step_fn, loc_state, ass_state, chunks, log_dir, max_iterations=n_steps,
-            generator=torch.Generator(device=DEVICE).manual_seed(SEED),
+            step_fn, loc_state, ass_state, chunks, log_dir, max_iterations=n_steps, generator=generator,
             config={"batch_size": TRAIN_BATCH, "steps_per_call": STEPS_PER_CALL, "device": card},
             log_interval=STEPS_PER_CALL, steps_per_call=STEPS_PER_CALL, print_report=False,
         )
@@ -573,61 +758,77 @@ def train_slice(pools: dict, card: str) -> dict:
         torch.cuda.synchronize()
         wall_s = time.perf_counter() - start
         launches = read_launches()
-        check(launches == {"fwd": n_steps, "bwd_theta": n_steps, "bwd_images": 0},
+        check(launches == {used: {"fwd": n_steps, "bwd_theta": n_steps, "bwd_images": 0}, unused: NO_LAUNCHES},
               f"training launched {launches} for {n_steps} steps")
         log = MetricsLog.read(log_dir)
         check(len(log) == 1 + TIMED_CHUNKS, f"{len(log)} log entries")
         for e in log:
             check(np.isfinite(e["loss_localizer"]) and np.isfinite(e["loss_dis"]), f"losses finite: {e}")
-        check(not torch.equal(loc.param_predictor.bias, head0), "the head's bias moved")
+        bias = loc.param_predictor.bias.detach()
+        check(not torch.equal(bias, head0), "the head's bias moved")
         check(not torch.equal(ass.Dense_0.weight, ass0), "the assessor's head weight moved")
+        # theta01 and theta10: only the rotated crop's d theta reaches them
+        # (rotation dropout at ratio 0 zeroes them with a constant mask)
+        off_diagonal = bias[[1, 3]]
+        check(bool((off_diagonal != 0).all()) if rotated else not off_diagonal.any(),
+              f"the head's off-diagonal bias {off_diagonal.tolist()} after training")
         rates = [e["images_per_sec"] for e in log[1:]]
         peak_gib = torch.cuda.max_memory_allocated() / 2**30
         for e in log:
-            print(f"train: iteration {e['iteration']} loss_localizer {e['loss_localizer']:.5f} "
+            print(f"{tag}: iteration {e['iteration']} loss_localizer {e['loss_localizer']:.5f} "
                   f"loss_dis {e['loss_dis']:.5f} y_fake_mean {e['y_fake_mean']:.4f} "
                   f"y_real_mean {e['y_real_mean']:.4f} images/s {e['images_per_sec']:.1f}")
-        print(f"train: {n_steps} steps ({1 + TIMED_CHUNKS} chunks of {STEPS_PER_CALL}, batch {TRAIN_BATCH}) "
-              f"in {wall_s:.2f} s; launches {launches}; peak memory {peak_gib:.2f} GiB")
-        print(f"train: images/s at batch {TRAIN_BATCH}, timed chunks: "
+        print(f"{tag}: {n_steps} steps ({1 + TIMED_CHUNKS} chunks of {STEPS_PER_CALL}, batch {TRAIN_BATCH}) "
+              f"in {wall_s:.2f} s; {used} launches {launches[used]}, {unused} launches {launches[unused]}; "
+              f"peak memory {peak_gib:.2f} GiB; head off-diagonal bias {off_diagonal.tolist()}")
+        print(f"{tag}: images/s at batch {TRAIN_BATCH}, timed chunks: "
               f"{', '.join(f'{r:.1f}' for r in rates)} (median {statistics.median(rates):.1f}) ({card})")
-        profile_chunk(loc_state, ass_state, next(chunks), step_fn, card)
+        profile_chunk(loc_state, ass_state, next(chunks), step_fn, generator, card)
 
         inf = LocalizerInference(log_dir, device=DEVICE, use_assessor=True)
         last = checkpoint.list_snapshots(log_dir, "Localizer_")[-1][0]
         check(last == n_steps, f"the last snapshot is Localizer_{last}.pt")
         frames = pools["unlabeled"]["unlabeled"][:8].astype(np.float32) / 255.0
+        before = read_launches()[used]["fwd"]
         boxes, rois, scores, _ = inf.localize_batch(frames)
+        served = read_launches()[used]["fwd"] - before
+        check(served == 1, f"serving one batch launched the {used} forward {served} times")
         check(boxes.shape == (8, 1, 4) and rois.shape == (8, CROP, CROP, 3) and scores.shape == (8,),
               "trained snapshot: serving shapes")
         check(np.isfinite(boxes).all() and np.isfinite(rois).all() and np.isfinite(scores).all(),
               "trained snapshot: serving finite")
-        print(f"train: served Localizer_{n_steps}.pt through LocalizerInference on {DEVICE}: "
-              f"8 frames, mean score {float(np.mean(scores)):.4f}")
-    return {"launches": launches, "images_per_s": statistics.median(rates)}
+        print(f"{tag}: served Localizer_{n_steps}.pt through LocalizerInference on {DEVICE} "
+              f"(sampler {inf.localizer.sampler_method(torch.from_numpy(frames).to(DEVICE))}, "
+              f"{used} forward launches +{served}): 8 frames, mean score {float(np.mean(scores)):.4f}")
+    return {"launches": launches[used], "images_per_s": statistics.median(rates)}
 
 
-def profile_chunk(loc_state, ass_state, chunk, step_fn, card: str) -> None:
+def profile_chunk(loc_state, ass_state, chunk, step_fn, generator, card: str) -> None:
     """One traced chunk of ``STEPS_PER_CALL`` steps (after the counted run)."""
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     torch.cuda.synchronize()
     with torch.profiler.profile(activities=acts) as prof:
         start = time.perf_counter()
-        _, _, metrics = step_fn(loc_state, ass_state, chunk, None)
+        _, _, metrics = step_fn(loc_state, ass_state, chunk, generator)
         float(metrics["loss_localizer"])
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - start) * 1e3
     print_trace(prof, f"pooled_step({STEPS_PER_CALL} x batch {TRAIN_BATCH})", wall_ms, card, top=12)
 
 
-# -- phase 6 --------------------------------------------------------------
-def step_against_cpu(pools: dict) -> dict:
+# -- phases 6 and 9 ---------------------------------------------------------
+def step_against_cpu(pools: dict, manifest: dict = MANIFEST, samplers: dict | None = None) -> dict:
     """Two alternating steps on the card and on the CPU from the same
     weights and batches (batch 4). Step 1's backbone gradient is exactly 0
-    behind the zero-initialised head, so step 2 is compared too."""
+    behind the zero-initialised head, so step 2 is compared too.
+    ``samplers`` names each device's crop where the two differ; then d
+    theta's off-diagonal entries are held on their own too."""
+    tag = "train card vs CPU" if samplers is None else "train rotated card vs CPU"
     torch.manual_seed(SEED + 4)
-    models = {"cpu": build_pair("cpu")}
+    models = {"cpu": build_pair("cpu", manifest)}
     models[DEVICE] = tuple(copy.deepcopy(m).to(DEVICE) for m in models["cpu"])
+    for device, sampler in (samplers or {}).items():
+        models[device][0].sampler = sampler
     rng = np.random.default_rng(SEED + 5)
     batches = []
     for _ in range(2):
@@ -664,32 +865,38 @@ def step_against_cpu(pools: dict) -> dict:
     def rel(a, b):
         return float((a - b).abs().max() / b.abs().max().clamp(min=1e-30))
 
+    off_diagonal = (slice(None), [0, 1], [1, 0])
     diffs = {}
     for s in range(2):
         for k in ("loss_localizer", "loss_dis"):
             diffs[f"step{s + 1} {k}"] = ("loss", abs(card["metrics"][s][k] - cpu["metrics"][s][k])
                                          / max(abs(cpu["metrics"][s][k]), 1e-30))
         diffs[f"step{s + 1} dtheta"] = ("dtheta", rel(card["dtheta"][s], cpu["dtheta"][s]))
+        if samplers is not None:
+            diffs[f"step{s + 1} dtheta off-diagonals"] = (
+                "dtheta", rel(card["dtheta"][s][off_diagonal], cpu["dtheta"][s][off_diagonal]))
     diffs["step2 head grad"] = ("head_grad", rel(card["head_grad"], cpu["head_grad"]))
     diffs["step2 stem conv grad"] = ("stem_grad", rel(card["stem_grad"], cpu["stem_grad"]))
     diffs["step2 BN running stats"] = ("bn_stats", max(rel(card["stats"][k], v) for k, v in cpu["stats"].items()))
-    print("train card vs CPU (relative): " + ", ".join(
+    print(f"{tag} (relative): " + ", ".join(
         f"{name} {v:.3e} (tol {STEP_TOL[kind]:g})" for name, (kind, v) in diffs.items()))
-    print("train card vs CPU, crops' cotangent (not held, see STEP_TOL): " + ", ".join(
+    print(f"{tag}, crops' cotangent (not held, see STEP_TOL): " + ", ".join(
         f"step{s + 1} max {rel(card['rois_grad'][s], cpu['rois_grad'][s]):.3e}, L2 "
         f"{float((card['rois_grad'][s] - cpu['rois_grad'][s]).norm() / cpu['rois_grad'][s].norm()):.3e}"
         for s in range(2)))
     for name, (kind, v) in diffs.items():
-        check(v <= STEP_TOL[kind], f"train card vs CPU {name}: {v} > {STEP_TOL[kind]}")
+        check(v <= STEP_TOL[kind], f"{tag} {name}: {v} > {STEP_TOL[kind]}")
     check(float(cpu["dtheta"][0].abs().max()) > 0, "theta gets a gradient")
+    if samplers is not None:
+        check(float(cpu["dtheta"][0][off_diagonal].abs().max()) > 0, "theta's off-diagonals get a gradient")
     return {name: v for name, (_, v) in diffs.items()}
 
 
-def kernel_entry(name: str, replaces: str, launches: int, err: float, t: dict) -> dict:
+def kernel_entry(name: str, source: str, replaces: str, launches: int, err: float, t: dict) -> dict:
     return {
         "name": name,
         "route": "cuda",
-        "source": "loans_tpu_torch/ops/csrc/separable_sampler.cu",
+        "source": f"loans_tpu_torch/ops/csrc/{source}",
         "replaces": replaces,
         "launches": launches,
         "max_abs_err": err,
@@ -716,16 +923,26 @@ def main() -> None:
         serve(inf, frames, card)
         card_against_cpu(log_dir, inf, frames)
     pools = training_pools()
-    trained = train_slice(pools, card)
+    k1_train = train_slice(pools, card)["launches"]
     step_against_cpu(pools)
-    launches = trained["launches"]
+    k2 = rotated_against_plain(card)
+    k2_train = train_slice(pools, card, with_kwargs(**ROTATED_KWARGS))["launches"]
+    step_against_cpu(pools, with_kwargs(rotation_dropout_ratio=1.0),
+                     samplers={DEVICE: "rotated_pallas", "cpu": "rotated"})
+    k1_src, k2_src = "separable_sampler.cu", "rotated_sampler.cu"
     print(json.dumps({"kernels": [
-        kernel_entry("separable_sampler_fwd", "loans_tpu/ops/stn.py:421", launches["fwd"],
+        kernel_entry("separable_sampler_fwd", k1_src, "loans_tpu/ops/stn.py:421", k1_train["fwd"],
                      k1["max_abs_err"], k1["times"][TRAIN_BATCH]),
-        kernel_entry("separable_sampler_bwd_theta", "loans_tpu/ops/stn.py:641", launches["bwd_theta"],
+        kernel_entry("separable_sampler_bwd_theta", k1_src, "loans_tpu/ops/stn.py:641", k1_train["bwd_theta"],
                      k1_bwd["max_abs_err"]["bwd_theta"], k1_bwd["times"]["bwd_theta"][TRAIN_BATCH]),
-        kernel_entry("separable_sampler_bwd_images", "loans_tpu/ops/stn.py:641", launches["bwd_images"],
+        kernel_entry("separable_sampler_bwd_images", k1_src, "loans_tpu/ops/stn.py:641", k1_train["bwd_images"],
                      k1_bwd["max_abs_err"]["bwd_images"], k1_bwd["times"]["bwd_images"][TRAIN_BATCH]),
+        kernel_entry("rotated_sampler_fwd", k2_src, "loans_tpu/ops/stn.py:474", k2_train["fwd"],
+                     k2["max_abs_err"]["fwd"], k2["times"]["fwd"][TRAIN_BATCH]),
+        kernel_entry("rotated_sampler_bwd_theta", k2_src, "loans_tpu/ops/stn.py:256", k2_train["bwd_theta"],
+                     k2["max_abs_err"]["bwd_theta"], k2["times"]["bwd_theta"][TRAIN_BATCH]),
+        kernel_entry("rotated_sampler_bwd_images", k2_src, "loans_tpu/ops/stn.py:256", k2_train["bwd_images"],
+                     k2["max_abs_err"]["bwd_images"], k2["times"]["bwd_images"][TRAIN_BATCH]),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -10,9 +10,12 @@
   0.299 R + 0.587 G + 0.114 B, as in the JAX package).
 
 ``sampler="auto"`` at ``rotation_dropout_ratio == 0`` crops with the CUDA
-kernel (``method="pallas"``) for CUDA tensors and with its plain PyTorch
-version (``method="separable"``) for CPU tensors, where no kernel can
-run; at other ratios it uses the gather path (``"general"``).
+kernels (``method="pallas"``) for CUDA tensors and with their plain
+PyTorch version (``method="separable"``) for CPU tensors, where no kernel
+can run; at other ratios it uses the gather path (``"general"``), as the
+JAX package's ``auto`` does. The rotated crop's kernels run when a
+localizer names them: ``sampler="rotated_pallas"`` (CUDA tensors), or
+``"rotated"`` for their plain version.
 """
 
 from __future__ import annotations
@@ -39,8 +42,8 @@ class Localizer(nn.Module):
       n_layers: backbone ResNet variant.
       input_size: static input size; enables res6 (>224) and res7 (>300).
       rotation_dropout_ratio: see ``ops/rotation_dropout``.
-      sampler: 'auto' | 'separable' | 'pallas' | 'general' (see
-        ``ops.stn.spatial_transform``).
+      sampler: 'auto' | 'separable' | 'pallas' | 'rotated' |
+        'rotated_pallas' | 'general' (see ``ops.stn.spatial_transform``).
       transform_rois_to_grayscale: collapse crops to 1 channel.
     """
 

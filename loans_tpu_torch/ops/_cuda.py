@@ -3,13 +3,16 @@
 Each ``csrc/<name>.cu`` exposes a plain C interface. At first use it is
 compiled by ``nvcc`` for Hopper (``sm_90a``) into a shared library under
 ``build/loans_tpu_torch/`` at the repository root, keyed by a hash of the
-source and the flags, and loaded with ``ctypes``. Importing this module
-compiles nothing. ``nvcc`` is taken from ``$CUDA_HOME/bin`` (default
-``/usr/local/cuda``) or the ``PATH``.
+source, the shared ``csrc/*.cuh`` headers and the flags, and loaded with
+``ctypes``. Importing this module
+compiles nothing; ``build_all`` compiles every library at once, one
+``nvcc`` per source, all started together. ``nvcc`` is taken from
+``$CUDA_HOME/bin`` (default ``/usr/local/cuda``) or the ``PATH``.
 """
 
 from __future__ import annotations
 
+import concurrent.futures
 import ctypes
 import functools
 import hashlib
@@ -34,6 +37,11 @@ SIGNATURES = {
         "separable_sampler_bwd_theta": ([_P] * 5 + [_I] * 7 + [_P], _I),
         "separable_sampler_bwd_images": ([_P] * 4 + [_I] * 7 + [_P], _I),
     },
+    "rotated_sampler": {
+        "rotated_sampler_fwd": ([_P, _P, _P] + [_I] * 7 + [_P], _I),
+        "rotated_sampler_bwd_theta": ([_P] * 5 + [_I] * 7 + [_P], _I),
+        "rotated_sampler_bwd_images": ([_P] * 4 + [_I] * 7 + [_P], _I),
+    },
 }
 _COMMON = {"loans_cuda_error_string": ([_I], ctypes.c_char_p)}
 
@@ -50,29 +58,46 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> Path:
-    """Where the built library for ``csrc/<name>.cu`` lives."""
-    source = (CSRC_DIR / f"{name}.cu").read_bytes()
-    key = hashlib.sha256(source + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    """Where the built library for ``csrc/<name>.cu`` lives: keyed by that
+    source, the shared headers ``csrc/*.cuh`` it may include, and the
+    flags."""
+    sources = [CSRC_DIR / f"{name}.cu", *sorted(CSRC_DIR.glob("*.cuh"))]
+    text = b"".join(path.read_bytes() for path in sources) + " ".join(NVCC_FLAGS).encode()
+    key = hashlib.sha256(text).hexdigest()
     return BUILD_DIR / f"lib{name}_{key[:16]}.so"
+
+
+def _build(name: str) -> None:
+    """Compile ``csrc/<name>.cu`` unless its library exists. The
+    compiler's output goes to a ``.log`` beside the library."""
+    so = library_path(name)
+    if so.exists():
+        return
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
+    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC_DIR / f"{name}.cu")]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    so.with_suffix(".log").write_text(proc.stdout + proc.stderr)
+    if proc.returncode != 0:
+        raise RuntimeError(
+            f"nvcc failed for {name}.cu ({' '.join(cmd)}):\n{proc.stderr}"
+        )
+    os.replace(tmp, so)  # atomic: a concurrent build never sees half a file
+
+
+def build_all() -> None:
+    """Compile every library of ``SIGNATURES`` that is missing, one
+    ``nvcc`` process per source, all running at once."""
+    with concurrent.futures.ThreadPoolExecutor(len(SIGNATURES)) as pool:
+        list(pool.map(_build, SIGNATURES))  # re-raises a failed build
 
 
 @functools.cache
 def load_library(name: str) -> ctypes.CDLL:
     """Build ``csrc/<name>.cu`` if needed, load it and declare its entry
-    points. The compiler's output goes to a ``.log`` beside the library."""
-    so = library_path(name)
-    if not so.exists():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-        cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC_DIR / f"{name}.cu")]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        so.with_suffix(".log").write_text(proc.stdout + proc.stderr)
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed for {name}.cu ({' '.join(cmd)}):\n{proc.stderr}"
-            )
-        os.replace(tmp, so)  # atomic: concurrent builders never see half a file
-    lib = ctypes.CDLL(str(so))
+    points."""
+    _build(name)
+    lib = ctypes.CDLL(str(library_path(name)))
     for fn, (argtypes, restype) in {**_COMMON, **SIGNATURES[name]}.items():
         entry = getattr(lib, fn)
         entry.argtypes = argtypes

@@ -50,21 +50,11 @@
 // position fills that image's gradient with NaN, as the dense product
 // would. Not launched on the training path, whose images need no grad.
 
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
+#include "sampler_common.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kMaxBlocksPerImage = 32;  // = _BWD_THETA_MAX_BLOCKS in stn.py
 constexpr int kElementsPerBlock = 2048;
-
-// Normalized output position u_i = -1 + step * i, as the plain version
-// forms it.
-__device__ __forceinline__ float out_pos(int i, float step) {
-  return __fadd_rn(-1.0f, __fmul_rn(step, (float)i));
-}
 
 // Input pixel sampled by output index i along one axis:
 // p = (scale * u + shift + 1) * half, with u = -1 + step * i and
@@ -285,26 +275,6 @@ __global__ void separable_sampler_bwd_images_kernel(
   }
 }
 
-// Grid (blocks, N): fills d images of every image marked in nan_flags with
-// NaN; blocks of unmarked images return at once.
-__global__ void fill_nan_images_kernel(const int* __restrict__ nan_flags,
-                                       float* __restrict__ d_images,
-                                       int64_t per_image) {
-  const int64_t n = blockIdx.y;
-  if (nan_flags[n] == 0) return;
-  const float nan = __int_as_float(0x7fc00000);
-  for (int64_t e = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-       e < per_image; e += (int64_t)gridDim.x * blockDim.x) {
-    d_images[n * per_image + e] = nan;
-  }
-}
-
-// Steps as the plain version forms them: 2 / (out - 1) in double, rounded
-// once to float; 0 for a single output (u = -1).
-float out_step(int out) {
-  return out > 1 ? (float)(2.0 / (double)(out - 1)) : 0.0f;
-}
-
 }  // namespace
 
 // images (n, h, w, c), theta (n, 2, 3), out (n, h_out, w_out, c): float32,
@@ -391,8 +361,4 @@ extern "C" int separable_sampler_bwd_images(const float* theta, const float* g,
   fill_nan_images_kernel<<<dim3(64, (unsigned)n), kThreads, 0, st>>>(
       nan_flags, d_images, per_image);
   return (int)cudaGetLastError();
-}
-
-extern "C" const char* loans_cuda_error_string(int err) {
-  return cudaGetErrorString((cudaError_t)err);
 }

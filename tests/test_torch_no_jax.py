@@ -3,9 +3,12 @@ JAX, flax or ``loans_tpu`` dependencies installed.
 
 A subprocess blocks ``jax``, ``flax`` and ``loans_tpu`` imports, imports
 every module of ``loans_tpu_torch``, serves a tiny log dir on the CPU and
-runs one tiny alternating training step.
+runs one tiny alternating training step, then one with rotation dropout at
+ratio 1.0 on the plain rotated crop (``sampler="rotated"``).
 It also checks that importing the package never runs ``nvcc`` and that
-the CUDA kernel refuses CPU tensors.
+the CUDA kernels of both crops refuse CPU tensors. The sources of the port
+and of ``chip_smoke.py``, which runs on the card, name none of them in an
+import.
 """
 
 import ast
@@ -40,7 +43,7 @@ assert not spawned, spawned
 
 from loans_tpu_torch.inference import LocalizerInference
 from loans_tpu_torch.models import Localizer, ResnetAssessor
-from loans_tpu_torch.ops import Size, sample_separable_kernel
+from loans_tpu_torch.ops import Size, sample_rotated_kernel, sample_separable_kernel
 from loans_tpu_torch.train import checkpoint
 
 torch.manual_seed(0)
@@ -62,13 +65,14 @@ assert boxes.shape == (3, 1, 4) and rois.shape == (3, 8, 8, 3) and scores.shape 
 assert np.isfinite(boxes).all() and np.isfinite(rois).all()
 assert ((scores > 0) & (scores < 1)).all() and heat is None
 
-try:
-    sample_separable_kernel(torch.zeros(1, 4, 4, 3), torch.zeros(1, 2, 3), Size(2, 2))
-except ValueError as e:
-    assert "CUDA" in str(e)
-else:
-    raise AssertionError("the kernel accepted a CPU tensor")
-assert sample_separable_kernel.launches == 0
+for kernel in (sample_separable_kernel, sample_rotated_kernel):
+    try:
+        kernel(torch.zeros(1, 4, 4, 3), torch.zeros(1, 2, 3), Size(2, 2))
+    except ValueError as e:
+        assert "CUDA" in str(e)
+    else:
+        raise AssertionError(f"{kernel.__name__} accepted a CPU tensor")
+    assert kernel.launches == 0
 
 from loans_tpu_torch.train import AlternatingConfig, alternating_step, create_train_state
 loc_s, ass_s = create_train_state(loc), create_train_state(ass)
@@ -85,6 +89,15 @@ assert loc_s.step == 1 and ass_s.step == 1
 assert all(np.isfinite(float(v)) for v in metrics.values()), metrics
 assert not torch.equal(loc.param_predictor.bias, head0)
 assert sample_separable_kernel.launches_bwd_theta == 0
+
+loc.rotation_dropout_ratio, loc.sampler = 1.0, "rotated"  # off-diagonals kept
+bias0 = loc.param_predictor.bias.detach().clone()
+loc_s, ass_s, metrics = alternating_step(
+    loc_s, ass_s, batch, None, AlternatingConfig(image_size=Size(32, 32)))
+assert loc_s.step == 2 and all(np.isfinite(float(v)) for v in metrics.values()), metrics
+moved = loc.param_predictor.bias.detach() != bias0
+assert moved[[1, 3]].all(), loc.param_predictor.bias  # theta01, theta10 train
+assert sample_rotated_kernel.launches == 0 and sample_rotated_kernel.launches_bwd_theta == 0
 assert not spawned, spawned
 assert not [m for m, v in sys.modules.items() if v is not None and m.split(".")[0] in ("jax", "flax", "loans_tpu")]
 print("NO_JAX_OK")
@@ -102,11 +115,11 @@ def test_port_imports_and_serves_without_jax():
 
 
 def test_port_sources_import_no_jax():
-    """No module of the port names jax, flax or loans_tpu in an import,
-    even inside a function."""
+    """No module of the port, and not ``chip_smoke.py``, names jax, flax or
+    loans_tpu in an import, even inside a function."""
     banned = ("jax", "jaxlib", "flax", "optax", "loans_tpu")
     offenders = []
-    for path in PACKAGE.rglob("*.py"):
+    for path in [*PACKAGE.rglob("*.py"), ROOT / "chip_smoke.py"]:
         for node in ast.walk(ast.parse(path.read_text())):
             if isinstance(node, ast.Import):
                 names = [a.name for a in node.names]

@@ -145,11 +145,21 @@ def test_spatial_transform_general_matches_separable():
     np.testing.assert_allclose(general, separable, atol=1e-4)
 
 
-@pytest.mark.parametrize("method", ["rotated", "rotated_pallas"])
-def test_rotated_methods_are_not_ported(method):
-    img, theta, out = _case("random")
-    with pytest.raises(NotImplementedError, match="K2"):
-        _port(lambda i, t, o: stn.spatial_transform(i, t, o, method=method), img, theta, out)
+@pytest.mark.parametrize("jax_method", ["rotated", "rotated_pallas"])
+def test_spatial_transform_rotated_matches_jax(jax_method):
+    """The port's ``method="rotated"`` (the plain version of the rotated
+    crop's kernels) against JAX's dense and Pallas rotated crops, at
+    rotated theta with one crop straddling the border."""
+    rng = np.random.default_rng(7)
+    img = rng.uniform(size=(3, 16, 18, 3)).astype(np.float32)
+    theta = rotated_theta(rng, 3)
+    theta[0] = border_theta()[0]
+    theta[0, 0, 1], theta[0, 1, 0] = 0.2, -0.15
+    np.testing.assert_allclose(
+        _port(lambda i, t, o: stn.spatial_transform(i, t, o, method="rotated"), img, theta, (8, 10)),
+        _jax(lambda i, t, o: jstn.spatial_transform(i, t, o, method=jax_method), img, theta, (8, 10)),
+        atol=ATOL,
+    )
 
 
 def test_unknown_method_raises():
@@ -173,3 +183,5 @@ def test_auto_sampler_choice():
     assert Localizer(n_layers=18).sampler_method(cpu) == "separable"
     assert Localizer(n_layers=18, rotation_dropout_ratio=0.5).sampler_method(cpu) == "general"
     assert Localizer(n_layers=18, sampler="pallas").sampler_method(cpu) == "pallas"
+    rotated = Localizer(n_layers=18, rotation_dropout_ratio=0.5, sampler="rotated_pallas")
+    assert rotated.sampler_method(cpu) == "rotated_pallas"
