@@ -15,7 +15,9 @@ Phases, one line or more each; any failure exits non-zero:
    median of 25 calls; profiler device time);
 2b. the two backward kernels (d theta, d images) against the plain
    backward on the card, the same way, with ``F.grid_sample``'s backward
-   as the yardstick;
+   as the yardstick, ties, NaN, one-row and one-column crops included; d
+   theta bit-identical between two runs, one device operation per call,
+   and timed L2-warm and L2-cold;
 3. serving: an R-50 224x224 -> 75x75 localizer with the assessor, seeded
    and saved as ``.pt`` snapshots in a temporary log dir, served through
    ``LocalizerInference(device="cuda")``: 2 single-frame requests and 3
@@ -24,8 +26,9 @@ Phases, one line or more each; any failure exits non-zero:
 5. training: ``Trainer`` runs the pooled alternating step (8 steps per
    call, batch 64) on uint8 pools resident on the card, R-50 224->75 and
    the assessor, float32, Adam(amsgrad) lr 1e-3: 1 warm-up chunk and 3
-   timed chunks, with each kernel's launches checked, a profiled chunk,
-   and the last snapshot served through ``LocalizerInference``;
+   timed chunks, with each kernel's launches checked, a profiled chunk
+   (with the crop kernels' device time per launch there, by name), and
+   the last snapshot served through ``LocalizerInference``;
 6. two training steps on the card against the CPU from the same weights
    (batch 4, full width);
 7. the rotated crop's three kernels (K2: forward, d theta, d images)
@@ -41,9 +44,12 @@ Phases, one line or more each; any failure exits non-zero:
 
 The line before the last is a JSON object of the six kernels: launches in
 phase 5 (K1) and phase 8 (K2), errors from phases 2, 2b and 7, times and
-bounds at the training batch. The last line is ``{"ok": true, "device":
-{...}}``. Without a CUDA card it exits with an error before printing
-either.
+bounds at the training batch: ``ms`` per call (CUDA events, host launch
+included), ``device_ms`` (profiler, calls back to back), ``device_cold_ms``
+(d theta: L2 flushed before each call) and ``device_in_situ_ms`` (per
+launch in the traced training chunk; null where the path launches none).
+The last line is ``{"ok": true, "device": {...}}``. Without a CUDA card it
+exits with an error before printing either.
 """
 
 from __future__ import annotations
@@ -61,6 +67,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from loans_tpu_torch.cli.bench_samplers import FLUSH_BYTES, device_events, device_time, fmt_us
 from loans_tpu_torch.data.device_data import device_chunk_batches
 from loans_tpu_torch.inference.localizer import LocalizerInference, set_precision
 from loans_tpu_torch.ops import _cuda, stn
@@ -123,6 +130,7 @@ STEP_TOL = {"loss": 1e-3, "dtheta": 1e-2, "head_grad": 1e-3, "stem_grad": 5e-2, 
 # FLOP/s outside the tensor cores
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS_PER_S = 67e12
+FLUSH_MB = FLUSH_BYTES // 2**20
 MANIFEST = {
     "localizer": {
         "model": "Localizer",
@@ -142,6 +150,7 @@ MANIFEST = {
 ROTATED_KWARGS = {"rotation_dropout_ratio": 0.5, "sampler": "rotated_pallas"}
 COUNTERS = {"fwd": "launches", "bwd_theta": "launches_bwd_theta", "bwd_images": "launches_bwd_images"}
 KERNELS = {"K1": sample_separable_kernel, "K2": sample_rotated_kernel}
+LIBRARIES = {"K1": "separable_sampler", "K2": "rotated_sampler"}
 NO_LAUNCHES = {"fwd": 0, "bwd_theta": 0, "bwd_images": 0}
 
 
@@ -194,32 +203,28 @@ def cuda_ms(fn, reps: int = 25) -> float:
     return statistics.median(times)
 
 
-def device_us(fn, reps: int = 20, match: str = "") -> float | None:
-    """Device time per call of ``fn`` in µs from a ``torch.profiler``
-    trace: the summed self device time of the kernels, copies and memsets
-    whose name contains ``match``, over ``reps`` calls. None when the
-    trace holds no device time."""
-    fn()
-    torch.cuda.synchronize()
-    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    total = sum(e.self_device_time_total for e in device_events(prof) if match in e.key)
-    return total / reps if total > 0 else None
+def device_us(fn, match: str = "", cold: bool = False) -> float | None:
+    """``device_time``'s µs per call alone."""
+    return device_time(fn, match=match, cold=cold).per_call_us
 
 
-def device_events(prof) -> list:
-    """Kernels, copies and memsets on the card in a profiler trace."""
-    return [
-        e for e in prof.key_averages()
-        if e.device_type == torch.autograd.DeviceType.CUDA
-        and e.self_device_time_total > 0 and "Activity Buffer" not in e.key
-    ]
+def ms(us: float | None) -> float | None:
+    return None if us is None else us / 1e3
 
 
-def fmt_us(us: float | None) -> str:
-    return "not measured" if us is None else f"{us:.1f} us"
+def dtheta_device_times(tag: str, name: str, kernel, n: int, card: str) -> dict:
+    """The d theta kernel ``name``'s device time per call, L2-warm and
+    L2-cold, by its name; checks that a call is that one kernel and
+    nothing else on the card (no fill, no finish)."""
+    warm = device_time(kernel, match=name)
+    cold = device_time(kernel, match=name, cold=True)
+    for t in (warm, cold):
+        check(len(t.names) == 1 and name in t.names[0] and t.ops_per_call <= 1,
+              f"{tag} {name} N={n}: a call ran {t.names}, {t.ops_per_call:g} device operations per call")
+    print(f"{tag} bwd_theta N={n}: device time (profiler, {name}) {fmt_us(warm.per_launch_us)} "
+          f"L2-warm, {fmt_us(cold.per_launch_us)} L2-cold (a {FLUSH_MB} MiB copy before each call); "
+          f"one device operation per call, {warm.names[0][:60]} ({card})")
+    return {"device_ms": ms(warm.per_launch_us), "device_cold_ms": ms(cold.per_launch_us)}
 
 
 def scenes(rng: np.random.Generator, n: int, size: int) -> np.ndarray:
@@ -346,16 +351,16 @@ def kernel_against_plain(card: str) -> dict:
         plain = lambda: sample_separable(images, theta, out)  # noqa: E731
         library = lambda: library_crop(images_nchw, theta, out)  # noqa: E731
         lib_err = float((library().permute(0, 2, 3, 1) - kernel()).abs().max())
-        ms, plain_ms, lib_ms = cuda_ms(kernel), cuda_ms(plain), cuda_ms(library)
+        call_ms, plain_ms, lib_ms = cuda_ms(kernel), cuda_ms(plain), cuda_ms(library)
         bound_ms, bound_by = bound("fwd", images, theta, out)
-        times[n] = {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
-                    "bound_ms": bound_ms, "bound_by": bound_by}
+        device = device_us(kernel, match="separable_sampler_fwd")
+        times[n] = {"ms": call_ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+                    "bound_ms": bound_ms, "bound_by": bound_by, "device_ms": ms(device)}
         print(f"K1 N={n}: per call (CUDA events, host launch included) kernel "
-              f"{ms * 1e3:.1f} us, plain bmm {plain_ms * 1e3:.1f} us, library grid_sample "
+              f"{call_ms * 1e3:.1f} us, plain bmm {plain_ms * 1e3:.1f} us, library grid_sample "
               f"{lib_ms * 1e3:.1f} us (max abs diff to the kernel {lib_err:.2e}); bound "
               f"{bound_ms * 1e3:.2f} us ({bound_by}) ({card})")
-        print(f"K1 N={n}: device time (profiler) kernel "
-              f"{fmt_us(device_us(kernel, match='separable_sampler'))}, plain bmm "
+        print(f"K1 N={n}: device time (profiler) kernel {fmt_us(device)}, plain bmm "
               f"{fmt_us(device_us(plain))}, library {fmt_us(device_us(library))} ({card})")
 
     small = rng.uniform(size=(4, CROP, CROP, 3)).astype(np.float32)
@@ -384,11 +389,11 @@ def backward_against_plain(card: str) -> dict:
         again = stn.separable_sampler_bwd_theta(images, theta, g)
         got_img = stn.separable_sampler_bwd_images(theta, g, tuple(images.shape))
         torch.cuda.synchronize()
-        check(torch.equal(got_theta, again), f"K1 bwd_theta {name}: two runs differ")
-        e_t = float((got_theta - want_theta).abs().max())
-        s_t = float(want_theta.abs().max())
-        e_i = float((got_img - want_img).abs().max())
-        s_i = float(want_img.abs().max())
+        check(torch.equal(got_theta.view(torch.int32), again.view(torch.int32)),
+              f"K1 bwd_theta {name}: two runs differ")
+        e_t, e_i = max_err(got_theta, want_theta), max_err(got_img, want_img)
+        s_t = float(want_theta.nan_to_num().abs().max())
+        s_i = float(want_img.nan_to_num().abs().max())
         print(f"K1 bwd {name}: dtheta max_abs_err {e_t:.3e}, max_rel_err "
               f"{e_t / max(s_t, 1e-30):.3e} (tol {K1_BWD_TOL['dtheta_rel']:g} of max |dtheta| {s_t:.4g}); "
               f"dimages max_abs_err {e_i:.3e}, max_rel_err {e_i / max(s_i, 1e-30):.3e} "
@@ -428,14 +433,21 @@ def backward_against_plain(card: str) -> dict:
               f"backward: max rel diff "
               f"{float((lib_dtheta - plain_dtheta).abs().max() / plain_dtheta.abs().max()):.2e}")
         for name, (kernel, plain, library) in calls.items():
-            ms, plain_ms, lib_ms = cuda_ms(kernel), cuda_ms(plain), cuda_ms(library)
+            call_ms, plain_ms, lib_ms = cuda_ms(kernel), cuda_ms(plain), cuda_ms(library)
             bound_ms, bound_by = bound(name, images, theta, out)
-            times.setdefault(name, {})[n] = {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
-                                             "bound_ms": bound_ms, "bound_by": bound_by}
+            t = {"ms": call_ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+                 "bound_ms": bound_ms, "bound_by": bound_by}
             print(f"K1 {name} N={n}: per call (CUDA events, host launch included) kernel "
-                  f"{ms * 1e3:.1f} us, plain {plain_ms * 1e3:.1f} us, library grid_sample backward "
+                  f"{call_ms * 1e3:.1f} us, plain {plain_ms * 1e3:.1f} us, library grid_sample backward "
                   f"{lib_ms * 1e3:.1f} us; bound {bound_ms * 1e3:.2f} us ({bound_by}) ({card})")
-            print(f"K1 {name} N={n}: device time (profiler) kernel {fmt_us(device_us(kernel))}, "
+            if name == "bwd_theta":
+                t.update(dtheta_device_times("K1", "separable_sampler_bwd_theta", kernel, n, card))
+                device = t["device_ms"] * 1e3
+            else:  # the whole call: its memsets, the scatter and the NaN fill
+                device = device_us(kernel)
+                t["device_ms"] = ms(device)
+            times.setdefault(name, {})[n] = t
+            print(f"K1 {name} N={n}: device time (profiler) kernel {fmt_us(device)}, "
                   f"plain {fmt_us(device_us(plain))}, library {fmt_us(device_us(library))} ({card})")
 
     ties = rng.uniform(size=(4, 129, 129, 3)).astype(np.float32)  # p_i = i: every position a tie
@@ -445,6 +457,10 @@ def backward_against_plain(card: str) -> dict:
     compare("off-image", imgs, np.tile(np.array([[0.5, 0, 5.0], [0, 0.5, 5.0]], np.float32), (4, 1, 1)), out)
     compare("border", imgs, BORDER_THETA, out)
     compare("h_out=1", imgs, axis_aligned_theta(rng, 4), Size(1, CROP))
+    compare("w_out=1", imgs, axis_aligned_theta(rng, 4), Size(CROP, 1))
+    nan = axis_aligned_theta(rng, 4)
+    nan[1, 1, 1] = np.nan  # NaN py everywhere in image 1: its four used entries NaN
+    compare("NaN theta", imgs, nan, out)
     return {"max_abs_err": errs, "times": times}
 
 
@@ -504,7 +520,8 @@ def rotated_against_plain(card: str) -> dict:
         again = stn.rotated_sampler_bwd_theta(images, theta, g)
         got_img = stn.rotated_sampler_bwd_images(theta, g, tuple(images.shape))
         torch.cuda.synchronize()
-        check(torch.equal(got_theta.nan_to_num(), again.nan_to_num()), f"K2 bwd_theta {name}: two runs differ")
+        check(torch.equal(got_theta.view(torch.int32), again.view(torch.int32)),
+              f"K2 bwd_theta {name}: two runs differ")
         e_f, e_t, e_i = max_err(got, want), max_err(got_theta, want_theta), max_err(got_img, want_img)
         s_t = float(want_theta.nan_to_num().abs().max())
         print(f"K2 {name}: fwd max_abs_err {e_f:.3e} (tol {K2_TOL['fwd_abs']:g}); dtheta max_abs_err "
@@ -556,15 +573,21 @@ def rotated_against_plain(card: str) -> dict:
             ),
         }
         for name, (kernel, plain, library) in calls.items():
-            ms, plain_ms, lib_ms = cuda_ms(kernel), cuda_ms(plain), cuda_ms(library)
+            call_ms, plain_ms, lib_ms = cuda_ms(kernel), cuda_ms(plain), cuda_ms(library)
             bound_ms, bound_by = rotated_bound(name, images, theta, out)
-            times.setdefault(name, {})[n] = {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
-                                             "bound_ms": bound_ms, "bound_by": bound_by}
-            match = "rotated_sampler" if name == "fwd" else ""
+            t = {"ms": call_ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+                 "bound_ms": bound_ms, "bound_by": bound_by}
             print(f"K2 {name} N={n}: per call (CUDA events, host launch included) kernel "
-                  f"{ms * 1e3:.1f} us, plain {plain_ms * 1e3:.1f} us, library grid_sample "
+                  f"{call_ms * 1e3:.1f} us, plain {plain_ms * 1e3:.1f} us, library grid_sample "
                   f"{lib_ms * 1e3:.1f} us; bound {bound_ms * 1e3:.2f} us ({bound_by}) ({card})")
-            print(f"K2 {name} N={n}: device time (profiler) kernel {fmt_us(device_us(kernel, match=match))}, "
+            if name == "bwd_theta":
+                t.update(dtheta_device_times("K2", "rotated_sampler_bwd_theta", kernel, n, card))
+                device = t["device_ms"] * 1e3
+            else:  # the forward kernel alone; d images' whole call (memsets, scatter, NaN fill)
+                device = device_us(kernel, match="rotated_sampler_fwd" if name == "fwd" else "")
+                t["device_ms"] = ms(device)
+            times.setdefault(name, {})[n] = t
+            print(f"K2 {name} N={n}: device time (profiler) kernel {fmt_us(device)}, "
                   f"plain {fmt_us(device_us(plain))}, library {fmt_us(device_us(library))} ({card})")
 
     ties = rng.uniform(size=(4, 129, 129, 3)).astype(np.float32)  # p = pixel: every position a tie
@@ -783,7 +806,13 @@ def train_slice(pools: dict, card: str, manifest: dict = MANIFEST) -> dict:
               f"peak memory {peak_gib:.2f} GiB; head off-diagonal bias {off_diagonal.tolist()}")
         print(f"{tag}: images/s at batch {TRAIN_BATCH}, timed chunks: "
               f"{', '.join(f'{r:.1f}' for r in rates)} (median {statistics.median(rates):.1f}) ({card})")
-        profile_chunk(loc_state, ass_state, next(chunks), step_fn, generator, card)
+        in_situ = profile_chunk(loc_state, ass_state, next(chunks), step_fn, generator, card)
+        for kernel in (f"{LIBRARIES[used]}_fwd", f"{LIBRARIES[used]}_bwd_theta"):
+            us, count = in_situ.get(kernel, (None, 0))
+            print(f"{tag}: in the traced chunk, {kernel} {fmt_us(us)} device time per launch "
+                  f"({count} launches) ({card})")
+        check(not {k for k in in_situ if not k.startswith(LIBRARIES[used])},
+              f"{tag}: the traced chunk ran {sorted(in_situ)}")
 
         inf = LocalizerInference(log_dir, device=DEVICE, use_assessor=True)
         last = checkpoint.list_snapshots(log_dir, "Localizer_")[-1][0]
@@ -800,11 +829,14 @@ def train_slice(pools: dict, card: str, manifest: dict = MANIFEST) -> dict:
         print(f"{tag}: served Localizer_{n_steps}.pt through LocalizerInference on {DEVICE} "
               f"(sampler {inf.localizer.sampler_method(torch.from_numpy(frames).to(DEVICE))}, "
               f"{used} forward launches +{served}): 8 frames, mean score {float(np.mean(scores)):.4f}")
-    return {"launches": launches[used], "images_per_s": statistics.median(rates)}
+    return {"launches": launches[used], "images_per_s": statistics.median(rates),
+            "device_in_situ_ms": {k: ms(us) for k, (us, _) in in_situ.items()}}
 
 
-def profile_chunk(loc_state, ass_state, chunk, step_fn, generator, card: str) -> None:
-    """One traced chunk of ``STEPS_PER_CALL`` steps (after the counted run)."""
+def profile_chunk(loc_state, ass_state, chunk, step_fn, generator, card: str) -> dict[str, tuple[float, int]]:
+    """One traced chunk of ``STEPS_PER_CALL`` steps (after the counted run).
+    Returns the crop kernels' device time per launch in µs and their
+    launches there, by entry point (``<library>_fwd``, ...)."""
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     torch.cuda.synchronize()
     with torch.profiler.profile(activities=acts) as prof:
@@ -814,6 +846,9 @@ def profile_chunk(loc_state, ass_state, chunk, step_fn, generator, card: str) ->
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - start) * 1e3
     print_trace(prof, f"pooled_step({STEPS_PER_CALL} x batch {TRAIN_BATCH})", wall_ms, card, top=12)
+    entries = [f"{library}_{kind}" for library in LIBRARIES.values() for kind in COUNTERS]
+    return {entry: (e.self_device_time_total / e.count, e.count)
+            for e in device_events(prof) for entry in entries if f"{entry}_kernel" in e.key}
 
 
 # -- phases 6 and 9 ---------------------------------------------------------
@@ -892,7 +927,8 @@ def step_against_cpu(pools: dict, manifest: dict = MANIFEST, samplers: dict | No
     return {name: v for name, (_, v) in diffs.items()}
 
 
-def kernel_entry(name: str, source: str, replaces: str, launches: int, err: float, t: dict) -> dict:
+def kernel_entry(name: str, source: str, replaces: str, launches: int, err: float, t: dict,
+                 in_situ: dict) -> dict:
     return {
         "name": name,
         "route": "cuda",
@@ -905,6 +941,9 @@ def kernel_entry(name: str, source: str, replaces: str, launches: int, err: floa
         "bound_ms": t["bound_ms"],
         "bound_by": t["bound_by"],
         "library_ms": t["library_ms"],
+        "device_ms": t["device_ms"],
+        "device_cold_ms": t.get("device_cold_ms"),
+        "device_in_situ_ms": in_situ.get(name),
     }
 
 
@@ -923,26 +962,28 @@ def main() -> None:
         serve(inf, frames, card)
         card_against_cpu(log_dir, inf, frames)
     pools = training_pools()
-    k1_train = train_slice(pools, card)["launches"]
+    k1_train = train_slice(pools, card)
     step_against_cpu(pools)
     k2 = rotated_against_plain(card)
-    k2_train = train_slice(pools, card, with_kwargs(**ROTATED_KWARGS))["launches"]
+    k2_train = train_slice(pools, card, with_kwargs(**ROTATED_KWARGS))
     step_against_cpu(pools, with_kwargs(rotation_dropout_ratio=1.0),
                      samplers={DEVICE: "rotated_pallas", "cpu": "rotated"})
     k1_src, k2_src = "separable_sampler.cu", "rotated_sampler.cu"
+    launches1, launches2 = k1_train["launches"], k2_train["launches"]
+    in_situ = {**k1_train["device_in_situ_ms"], **k2_train["device_in_situ_ms"]}
     print(json.dumps({"kernels": [
-        kernel_entry("separable_sampler_fwd", k1_src, "loans_tpu/ops/stn.py:421", k1_train["fwd"],
-                     k1["max_abs_err"], k1["times"][TRAIN_BATCH]),
-        kernel_entry("separable_sampler_bwd_theta", k1_src, "loans_tpu/ops/stn.py:641", k1_train["bwd_theta"],
-                     k1_bwd["max_abs_err"]["bwd_theta"], k1_bwd["times"]["bwd_theta"][TRAIN_BATCH]),
-        kernel_entry("separable_sampler_bwd_images", k1_src, "loans_tpu/ops/stn.py:641", k1_train["bwd_images"],
-                     k1_bwd["max_abs_err"]["bwd_images"], k1_bwd["times"]["bwd_images"][TRAIN_BATCH]),
-        kernel_entry("rotated_sampler_fwd", k2_src, "loans_tpu/ops/stn.py:474", k2_train["fwd"],
-                     k2["max_abs_err"]["fwd"], k2["times"]["fwd"][TRAIN_BATCH]),
-        kernel_entry("rotated_sampler_bwd_theta", k2_src, "loans_tpu/ops/stn.py:256", k2_train["bwd_theta"],
-                     k2["max_abs_err"]["bwd_theta"], k2["times"]["bwd_theta"][TRAIN_BATCH]),
-        kernel_entry("rotated_sampler_bwd_images", k2_src, "loans_tpu/ops/stn.py:256", k2_train["bwd_images"],
-                     k2["max_abs_err"]["bwd_images"], k2["times"]["bwd_images"][TRAIN_BATCH]),
+        kernel_entry("separable_sampler_fwd", k1_src, "loans_tpu/ops/stn.py:421", launches1["fwd"],
+                     k1["max_abs_err"], k1["times"][TRAIN_BATCH], in_situ),
+        kernel_entry("separable_sampler_bwd_theta", k1_src, "loans_tpu/ops/stn.py:641", launches1["bwd_theta"],
+                     k1_bwd["max_abs_err"]["bwd_theta"], k1_bwd["times"]["bwd_theta"][TRAIN_BATCH], in_situ),
+        kernel_entry("separable_sampler_bwd_images", k1_src, "loans_tpu/ops/stn.py:641", launches1["bwd_images"],
+                     k1_bwd["max_abs_err"]["bwd_images"], k1_bwd["times"]["bwd_images"][TRAIN_BATCH], in_situ),
+        kernel_entry("rotated_sampler_fwd", k2_src, "loans_tpu/ops/stn.py:474", launches2["fwd"],
+                     k2["max_abs_err"]["fwd"], k2["times"]["fwd"][TRAIN_BATCH], in_situ),
+        kernel_entry("rotated_sampler_bwd_theta", k2_src, "loans_tpu/ops/stn.py:256", launches2["bwd_theta"],
+                     k2["max_abs_err"]["bwd_theta"], k2["times"]["bwd_theta"][TRAIN_BATCH], in_situ),
+        kernel_entry("rotated_sampler_bwd_images", k2_src, "loans_tpu/ops/stn.py:256", launches2["bwd_images"],
+                     k2["max_abs_err"]["bwd_images"], k2["times"]["bwd_images"][TRAIN_BATCH], in_situ),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -1,7 +1,7 @@
 """Sampler comparison on the card (port of ``tools/bench_samplers.py``).
 
-    python -m loans_tpu_torch.cli.bench_samplers [--step] [--batch 128]
-        [--rotation-ratio 0.5] [--device cuda]
+    python -m loans_tpu_torch.cli.bench_samplers [--step] [--dtheta]
+        [--batch 128] [--rotation-ratio 0.5] [--device cuda]
 
 Prints the card's name and power limit (``nvidia-smi``) first. Then, at
 the JAX tool's operating point (batch 64, 224x224 -> 75x75, float32, TF32
@@ -20,6 +20,18 @@ R-50 localizer and assessor, float32, Adam(amsgrad)) per method
 the JAX tool's pools (256 uint8 scenes, 512 uint8 crops, seed 0): 10 steps
 per call, 2 warm-up calls, 5 timed calls, reported as ms/iter and images/s.
 
+``--dtheta`` times only the two d theta kernels
+(``separable_sampler_bwd_theta``, ``rotated_sampler_bwd_theta``) at N = 32,
+64 and 128, 224x224 -> 75x75: the device time of a whole call from a
+``torch.profiler`` trace, L2-warm (calls back to back, the inputs left in
+the 50 MB L2) and L2-cold (``FLUSH_BYTES`` copied between two buffers
+before each call, that copy left out), and the device operations per call.
+It times whichever ``loans_tpu_torch`` Python imports, so another checkout's
+kernels are timed by running this file by path with that checkout first on
+``PYTHONPATH``:
+
+    PYTHONPATH=<other checkout> python loans_tpu_torch/cli/bench_samplers.py --dtheta
+
 The JAX tool's scan-and-readback harness and its matmul calibration guard
 against a device whose blocking call could return before the work ended;
 CUDA events read the card's own timeline and are not ported. Needs a CUDA
@@ -32,14 +44,17 @@ import argparse
 import functools
 import statistics
 import subprocess
+from typing import NamedTuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
+import loans_tpu_torch
 from loans_tpu_torch.data.device_data import device_chunk_batches
 from loans_tpu_torch.inference.localizer import set_precision
 from loans_tpu_torch.models import Localizer, ResnetAssessor
+from loans_tpu_torch.ops import stn
 from loans_tpu_torch.ops.geometry import Size
 from loans_tpu_torch.ops.stn import spatial_transform
 from loans_tpu_torch.train import AlternatingConfig, create_train_state, pooled_step
@@ -52,6 +67,8 @@ PLAIN = ("separable", "rotated")  # backward on CPU tensors only
 AXIS_ALIGNED_THETA = ((0.7, 0.0, 0.1), (0.0, 0.6, -0.1))
 ROTATED_THETA = ((0.7, 0.15, 0.1), (-0.12, 0.6, -0.1))
 STEPS_PER_CALL, WARMUP_CALLS, TIMED_CALLS = 10, 2, 5
+DTHETA_BATCHES = (32, 64, 128)
+FLUSH_BYTES = 256 * 2**20  # copied before each L2-cold call: 5x the H100's 50 MB L2
 
 
 def card_name() -> str:
@@ -77,8 +94,63 @@ def median_ms(fn, warmup: int = 3, reps: int = 25) -> float:
     return statistics.median(times)
 
 
-def _theta(rows, device) -> torch.Tensor:
-    return torch.tensor(rows, dtype=torch.float32, device=device).expand(BATCH, 2, 3).contiguous()
+def device_events(prof) -> list:
+    """Kernels, copies and memsets on the card in a profiler trace."""
+    return [
+        e for e in prof.key_averages()
+        if e.device_type == torch.autograd.DeviceType.CUDA
+        and e.self_device_time_total > 0 and "Activity Buffer" not in e.key
+    ]
+
+
+class DeviceTime(NamedTuple):
+    per_call_us: float | None  # summed device time of the matched operations per call
+    per_launch_us: float | None  # their mean device time per launch
+    ops_per_call: float  # device operations per call, whatever their name
+    names: list[str]  # the names of those operations
+
+
+def device_time(fn, reps: int = 20, match: str = "", cold: bool = False) -> DeviceTime:
+    """Device time of ``fn`` from a ``torch.profiler`` trace of ``reps``
+    calls: of the kernels, copies and memsets whose name contains
+    ``match`` (None when the trace holds none), per call and per launch
+    (the trace may drop an event at its edges, so a call of one kernel is
+    best timed per launch), and every device operation's count and name.
+    ``cold``: before each call, copy ``FLUSH_BYTES`` between two buffers,
+    so that ``fn`` finds its inputs in HBM and not in L2; that copy
+    ("Memcpy DtoD") is left out of every number. A trace that comes back
+    with no device operation at all (the profiler loses a short window
+    now and then) is taken again, up to three times."""
+    flush = [torch.empty(FLUSH_BYTES // 4, device="cuda") for _ in range(2)] if cold else None
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                if flush:
+                    flush[0].copy_(flush[1])
+                fn()
+            torch.cuda.synchronize()
+        events = [e for e in device_events(prof) if not (cold and "Memcpy DtoD" in e.key)]
+        if events:
+            break
+    matched = [e for e in events if match in e.key]
+    total = sum(e.self_device_time_total for e in matched)
+    launches = sum(e.count for e in matched)
+    return DeviceTime(
+        total / reps if total > 0 else None,
+        total / launches if total > 0 else None,
+        sum(e.count for e in events) / reps,
+        sorted(e.key for e in events),
+    )
+
+
+def fmt_us(us: float | None) -> str:
+    return "not measured" if us is None else f"{us:.2f} us"
+
+
+def _theta(rows, device, batch: int = BATCH) -> torch.Tensor:
+    return torch.tensor(rows, dtype=torch.float32, device=device).expand(batch, 2, 3).contiguous()
 
 
 def _fwd_bwd(crop, images, theta):
@@ -113,6 +185,24 @@ def bench_standalone(device: torch.device) -> None:
     print(f"{'library grid_sample forward':48s} {median_ms(lambda: library(nchw, rotated)):8.3f} ms", flush=True)
     ms = median_ms(lambda: _fwd_bwd(library, nchw, rotated))
     print(f"{'library grid_sample forward+backward':48s} {ms:8.3f} ms", flush=True)
+
+
+def bench_dtheta(device: torch.device, card: str) -> None:
+    """Whole-call device time of each d theta kernel, L2-warm and
+    L2-cold, and its device operations per call."""
+    print(f"dtheta: loans_tpu_torch from {loans_tpu_torch.__path__[0]}", flush=True)
+    g = np.random.default_rng(0)
+    for n in DTHETA_BATCHES:
+        images = torch.from_numpy(g.uniform(size=(n, IMG.height, IMG.width, 3)).astype(np.float32)).to(device)
+        cot = torch.from_numpy(g.normal(size=(n, CROP.height, CROP.width, 3)).astype(np.float32)).to(device)
+        for fn, rows in ((stn.separable_sampler_bwd_theta, AXIS_ALIGNED_THETA),
+                         (stn.rotated_sampler_bwd_theta, ROTATED_THETA)):
+            theta = _theta(rows, device, n)
+            call = functools.partial(fn, images, theta, cot)
+            warm, cold = device_time(call), device_time(call, cold=True)
+            print(f"dtheta {fn.__name__} N={n}: device {fmt_us(warm.per_call_us)} warm, "
+                  f"{fmt_us(cold.per_call_us)} cold, {warm.ops_per_call:g} device operations per call "
+                  f"({card})", flush=True)
 
 
 def bench_step(device: torch.device, batch: int, rotation_ratio: float) -> None:
@@ -156,6 +246,7 @@ def bench_step(device: torch.device, batch: int, rotation_ratio: float) -> None:
 def get_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description="compare the crop's samplers on a CUDA card")
     p.add_argument("--step", action="store_true", help="also time the full alternating step per sampler")
+    p.add_argument("--dtheta", action="store_true", help="time only the two d theta kernels, warm and cold")
     p.add_argument("--batch", type=int, default=128, help="batch of the --step runs")
     p.add_argument("--rotation-ratio", type=float, default=0.5)
     p.add_argument("--device", default="cuda", help="a CUDA device (default: cuda)")
@@ -168,9 +259,13 @@ def main(argv=None) -> None:
     if device.type != "cuda" or not torch.cuda.is_available():
         raise SystemExit(f"bench_samplers times a CUDA card; {args.device!r} is not one here")
     set_precision()
-    print(card_name(), flush=True)
+    card = card_name()
+    print(card, flush=True)
     print(f"device {torch.cuda.get_device_name(device)}, torch {torch.__version__}, CUDA {torch.version.cuda}",
           flush=True)
+    if args.dtheta:
+        bench_dtheta(device, card)
+        return
     bench_standalone(device)
     if args.step:
         bench_step(device, args.batch, args.rotation_ratio)

@@ -34,12 +34,12 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 SIGNATURES = {
     "separable_sampler": {
         "separable_sampler_fwd": ([_P, _P, _P] + [_I] * 7 + [_P], _I),
-        "separable_sampler_bwd_theta": ([_P] * 5 + [_I] * 7 + [_P], _I),
+        "separable_sampler_bwd_theta": ([_P] * 4 + [_I] * 7 + [_P], _I),
         "separable_sampler_bwd_images": ([_P] * 4 + [_I] * 7 + [_P], _I),
     },
     "rotated_sampler": {
         "rotated_sampler_fwd": ([_P, _P, _P] + [_I] * 7 + [_P], _I),
-        "rotated_sampler_bwd_theta": ([_P] * 5 + [_I] * 7 + [_P], _I),
+        "rotated_sampler_bwd_theta": ([_P] * 4 + [_I] * 7 + [_P], _I),
         "rotated_sampler_bwd_images": ([_P] * 4 + [_I] * 7 + [_P], _I),
     },
 }

@@ -40,15 +40,28 @@
 // gpx * u_j, gpx * v_i, gpx, gpy * u_j, gpy * v_i, gpy, which are d theta
 // row-major. What bounds it: it reads g (4.3 MB at N = 64) and the touched
 // taps, a few microseconds of HBM time, and does a few dozen flops per
-// element; with one reduction per image it is latency- and
-// reduction-bound. The design, as the separable crop's d theta: one
-// thread per output pixel (looping over channels), a fixed number of
-// blocks per image (from the crop size only, at most kMaxBlocksPerImage),
-// a shared-memory tree reduction in a fixed order, and a second small
-// kernel adding the blocks' partial sums in order. No float atomics, so
-// the result is bit-identical between runs. NaN positions give what the
-// dense product gives: gpx is NaN where py is NaN (0 where only px is),
-// gpy where px is.
+// element, so bytes set its bound; but a call is short enough that its
+// time goes to a fixed cost (launch, the cluster reduction) and to each
+// thread's pixels in turn: the arithmetic of their positions and taps, and
+// the latency of their loads. The design, one launch per call:
+// - One thread-block cluster of kClusterCtas CTAs of kDthetaThreads
+//   threads per image (min(2, ceil(pixels / kDthetaThreads)) CTAs); CTA r
+//   takes the output pixels [r * pixels / ctas, (r + 1) * pixels / ctas),
+//   a band of rows, so its taps share lines in L1.
+// - One thread per output pixel: positions stay per pixel (they are 2-D),
+//   with 32-bit index arithmetic inside an image (its base in 64 bits) and
+//   no division per pixel (the thread steps its row and column). The
+//   channel loop is unrolled for C = 3 (a generic instance takes any C),
+//   so each tap's C values and g's C values are loaded together before
+//   the arithmetic; a tap outside the image reads index 0 and is not
+//   summed.
+// - A fixed-order reduction inside the kernel (cluster_sum in
+//   sampler_common.cuh: warp shuffles, the CTA's warps, then cluster rank 0
+//   adding the CTAs' sums over distributed shared memory in rank order);
+//   rank 0 writes the six entries. No float atomics and no scratch, so the
+//   result is bit-identical between runs. NaN positions give what the
+//   dense product gives: gpx is NaN where py is NaN (0 where only px is),
+//   gpy where px is.
 //
 // Backward, d images (rotated_sampler_bwd_images): each output element
 // adds (hat_y * g) * hat_x to its <= 4 taps with float atomics after the
@@ -62,7 +75,6 @@
 
 namespace {
 
-constexpr int kPixelsPerBlock = 512;
 constexpr int kSums = 6;
 
 // p = (((a * u + b * v) + shift) + 1) * half, rounded after each operation.
@@ -161,52 +173,75 @@ __global__ void rotated_sampler_fwd_kernel(
   out[idx] = acc;
 }
 
-// Grid (blocks_per_image, N). Block s of image n sums output pixels
-// e = s * kThreads + tid + k * blocks_per_image * kThreads of that image and
-// writes its six sums to partial[n][s][0..5]:
-// [sum gpx*u, sum gpx*v, sum gpx, sum gpy*u, sum gpy*v, sum gpy].
-__global__ void __launch_bounds__(kThreads) rotated_sampler_bwd_theta_kernel(
+// Grid n * ctas, one cluster of ctas CTAs per image. Cluster rank r sums
+// the output pixels [r * pixels / ctas, (r + 1) * pixels / ctas), one
+// thread per pixel at a time; cluster_sum adds the six sums
+// [sum gpx*u, sum gpx*v, sum gpx, sum gpy*u, sum gpy*v, sum gpy] over the
+// cluster, and rank 0 writes them: d theta (2, 3) row-major. kC is the
+// channel count, whose values a thread loads together (each tap's and
+// g's) before it uses any; 0 takes any c, one channel at a time.
+template <int kC>
+__global__ void __launch_bounds__(kDthetaThreads, 2) rotated_sampler_bwd_theta_kernel(
     const float* __restrict__ images, const float* __restrict__ theta,
-    const float* __restrict__ g, float* __restrict__ partial, int h, int w,
-    int c, int h_out, int w_out, float step_y, float step_x,
-    int blocks_per_image) {
-  __shared__ float red[kSums][kThreads];
+    const float* __restrict__ g, float* __restrict__ d_theta, int h, int w,
+    int c, int h_out, int w_out, float step_y, float step_x, int ctas) {
+  constexpr int kLoaded = kC > 0 ? kC : 1;  // channels loaded together
+  const int channels = kC > 0 ? kC : c;
   const int tid = threadIdx.x;
-  const int s = blockIdx.x;
-  const int64_t n = blockIdx.y;
+  const int rank = (int)cg::this_cluster().block_rank();
+  const int64_t n = blockIdx.x / ctas;
+  const int pixels = h_out * w_out;
+  const int begin = (int)((int64_t)rank * pixels / ctas);
+  const int end = (int)((int64_t)(rank + 1) * pixels / ctas);
   const float half_y = 0.5f * (float)(h - 1), half_x = 0.5f * (float)(w - 1);
   const float* t = theta + n * 6;
-  const float* img = images + n * (int64_t)h * w * c;
-  const int64_t pixels = (int64_t)h_out * w_out;
-  const float* gn = g + n * pixels * c;
+  const float* img = images + n * (int64_t)h * w * channels;
+  const float* gn = g + n * (int64_t)pixels * channels;
   const float nan = __int_as_float(0x7fc00000);
 
+  // pixel e = i * w_out + j, advanced by kDthetaThreads at a time without
+  // a division: that is di rows and dj columns
+  const int di = kDthetaThreads / w_out, dj = kDthetaThreads - di * w_out;
+  int i = (begin + tid) / w_out, j = begin + tid - i * w_out;
   float acc[kSums] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
-  for (int64_t e = (int64_t)s * kThreads + tid; e < pixels;
-       e += (int64_t)blocks_per_image * kThreads) {
-    const int j = (int)(e % w_out);
-    const int i = (int)(e / w_out);
+  for (int e = begin + tid; e < end; e += kDthetaThreads) {
     const Pos p = positions(t, i, j, step_y, step_x, half_y, half_x);
     const Taps tx = axis_taps(p.px, w);
     const Taps ty = axis_taps(p.py, h);
     float gx = 0.0f, gy = 0.0f;  // sum_c g * dout/dpx, sum_c g * dout/dpy
-    for (int ch = 0; ch < c; ++ch) {
-      float sx = 0.0f, sy = 0.0f;
+    for (int ch0 = 0; ch0 < channels; ch0 += kLoaded) {
+      // every tap's kLoaded channel values and g's first; a tap outside
+      // the image reads index 0 and is not summed
+      float v[kLoaded][2][2], gv[kLoaded];
+#pragma unroll
       for (int ky = 0; ky < 2; ++ky) {
-        float row = 0.0f, drow = 0.0f;  // hat and hat' over the columns
+#pragma unroll
         for (int kx = 0; kx < 2; ++kx) {
-          if (tx.w[kx] == 0.0f || ty.w[ky] == 0.0f) continue;
-          const float v = __ldg(
-              img + ((int64_t)ty.idx[ky] * w + tx.idx[kx]) * c + ch);
-          row += tx.w[kx] * v;
-          drow += tx.dw[kx] * v;
+          const float* tap = img + (ty.idx[ky] * w + tx.idx[kx]) * channels + ch0;
+#pragma unroll
+          for (int cc = 0; cc < kLoaded; ++cc) v[cc][ky][kx] = __ldg(tap + cc);
         }
-        sx += ty.w[ky] * drow;
-        sy += ty.dw[ky] * row;
       }
-      const float gv = __ldg(gn + e * c + ch);
-      gx += gv * sx;
-      gy += gv * sy;
+#pragma unroll
+      for (int cc = 0; cc < kLoaded; ++cc) gv[cc] = __ldg(gn + e * channels + ch0 + cc);
+#pragma unroll
+      for (int cc = 0; cc < kLoaded; ++cc) {
+        float sx = 0.0f, sy = 0.0f;
+#pragma unroll
+        for (int ky = 0; ky < 2; ++ky) {
+          float row = 0.0f, drow = 0.0f;  // hat and hat' over the columns
+#pragma unroll
+          for (int kx = 0; kx < 2; ++kx) {
+            const float x = tx.w[kx] != 0.0f && ty.w[ky] != 0.0f ? v[cc][ky][kx] : 0.0f;
+            row += tx.w[kx] * x;
+            drow += tx.dw[kx] * x;
+          }
+          sx += ty.w[ky] * drow;
+          sy += ty.dw[ky] * row;
+        }
+        gx += gv[cc] * sx;
+        gy += gv[cc] * sy;
+      }
     }
     float gpx = gx * half_x, gpy = gy * half_y;
     if (isnan(p.py)) gpx = nan;  // the dense product's NaN pattern
@@ -217,34 +252,15 @@ __global__ void __launch_bounds__(kThreads) rotated_sampler_bwd_theta_kernel(
     acc[3] += gpy * p.u;
     acc[4] += gpy * p.v;
     acc[5] += gpy;
-  }
-  for (int k = 0; k < kSums; ++k) red[k][tid] = acc[k];
-  __syncthreads();
-  for (int stride = kThreads / 2; stride > 0; stride >>= 1) {
-    if (tid < stride) {
-      for (int k = 0; k < kSums; ++k) red[k][tid] += red[k][tid + stride];
-    }
-    __syncthreads();
-  }
-  if (tid < kSums) {
-    partial[(n * kMaxBlocksPerImage + s) * kSums + tid] = red[tid][0];
-  }
-}
-
-// One thread per image: adds the blocks' partial sums in order; they are d
-// theta (2, 3) row-major.
-__global__ void rotated_sampler_bwd_theta_finish_kernel(
-    const float* __restrict__ partial, float* __restrict__ d_theta, int n,
-    int blocks_per_image) {
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= n) return;
-  float sum[kSums] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
-  for (int s = 0; s < blocks_per_image; ++s) {
-    for (int k = 0; k < kSums; ++k) {
-      sum[k] += partial[((int64_t)b * kMaxBlocksPerImage + s) * kSums + k];
+    i += di;
+    j += dj;
+    if (j >= w_out) {
+      j -= w_out;
+      ++i;
     }
   }
-  for (int k = 0; k < kSums; ++k) d_theta[(int64_t)b * kSums + k] = sum[k];
+  const float sum = cluster_sum(acc, ctas);
+  if (rank == 0 && tid < kSums) d_theta[n * kSums + tid] = sum;
 }
 
 // One thread per output element (n, i, j, c), as the forward: adds
@@ -308,33 +324,25 @@ extern "C" int rotated_sampler_fwd(const float* images, const float* theta,
 }
 
 // d theta (n, 2, 3) from images (n, h, w, c), theta (n, 2, 3) and the crop's
-// cotangent g (n, h_out, w_out, c); partial is scratch of
-// n * kMaxBlocksPerImage * 6 floats. All float32, contiguous, on card
-// `device`. Two launches on `stream`; returns the first CUDA error (0 on
-// success).
+// cotangent g (n, h_out, w_out, c). All float32, contiguous, on card
+// `device`; offsets inside an image in 32 bits. One cluster launch on
+// `stream`; returns its CUDA error (0 on success).
 extern "C" int rotated_sampler_bwd_theta(const float* images,
                                          const float* theta, const float* g,
-                                         float* partial, float* d_theta, int n,
-                                         int h, int w, int c, int h_out,
-                                         int w_out, int device, void* stream) {
+                                         float* d_theta, int n, int h, int w,
+                                         int c, int h_out, int w_out,
+                                         int device, void* stream) {
   const int64_t pixels = (int64_t)h_out * w_out;
   if (n == 0 || pixels == 0 || c == 0) return 0;
   const cudaError_t set = cudaSetDevice(device);
   if (set != cudaSuccess) return (int)set;
-  int64_t blocks = (pixels + kPixelsPerBlock - 1) / kPixelsPerBlock;
-  if (blocks > kMaxBlocksPerImage) blocks = kMaxBlocksPerImage;
-  const dim3 grid((unsigned)blocks, (unsigned)n);
-  rotated_sampler_bwd_theta_kernel<<<grid, kThreads, 0,
-                                     (cudaStream_t)stream>>>(
-      images, theta, g, partial, h, w, c, h_out, w_out, out_step(h_out),
-      out_step(w_out), (int)blocks);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  rotated_sampler_bwd_theta_finish_kernel<<<(n + kThreads - 1) / kThreads,
-                                            kThreads, 0,
-                                            (cudaStream_t)stream>>>(
-      partial, d_theta, n, (int)blocks);
-  return (int)cudaGetLastError();
+  const int64_t wanted = (pixels + kDthetaThreads - 1) / kDthetaThreads;
+  const int ctas = wanted < kClusterCtas ? (int)wanted : kClusterCtas;
+  auto kernel = c == 3 ? rotated_sampler_bwd_theta_kernel<3>
+                       : rotated_sampler_bwd_theta_kernel<0>;
+  return (int)launch_clusters(kernel, n, ctas, 0, (cudaStream_t)stream,
+                              images, theta, g, d_theta, h, w, c, h_out,
+                              w_out, out_step(h_out), out_step(w_out), ctas);
 }
 
 // d images (n, h, w, c) from theta (n, 2, 3) and the crop's cotangent g

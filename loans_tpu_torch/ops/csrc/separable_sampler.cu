@@ -29,17 +29,40 @@
 // the forward does, plus the row or column floor(p) - 1, where the hat's
 // derivative is non-zero when p is an integer (JAX's subgradients: -1 at
 // d = 0, -0.5 * sign(d) at |d| = 1, see hat_grad). What bounds it: at
-// N = 64 it reads g (4.3 MB) and at most the touched image region
-// (38.5 MB), a few microseconds of HBM time, and does a few dozen flops
-// per element; with one small reduction per image it is latency- and
-// reduction-bound. The design: a fixed number of blocks per image (up to
-// kMaxBlocksPerImage, from the crop size only), each thread summing a
-// fixed strided set of elements, a shared-memory tree reduction in a
-// fixed order per block, and a second small kernel adding the blocks'
-// partial sums in order. No float atomics, so the result is
-// deterministic. Positions come from the forward's sample_pos, so the two
-// kernels agree on which taps are ties. A NaN position gives NaN in that
-// image's d theta, as the dense product would.
+// N = 64 it reads g (4.3 MB) and the touched image region (at most
+// 38.5 MB), a few microseconds of HBM time, and does a few dozen flops per
+// element, so bytes set its bound; but a call is short enough that its
+// time goes to a fixed cost (launch, tap tables, the cluster reduction)
+// and to the latency of each thread's rounds of loads. The design, one
+// launch per call:
+// - One thread-block cluster of kClusterCtas CTAs of kDthetaThreads
+//   threads per image (min(2, h_out) CTAs); CTA r takes the output rows
+//   [r * h_out / ctas, (r + 1) * h_out / ctas).
+// - Tap tables, built once per CTA in dynamic shared memory: for each of
+//   its rows and for each of the w_out columns, the offsets of the two core
+//   taps and of the extra tap (hat' only, at a tie), and their weights.
+//   Positions come from sample_pos, the forward's, so every kernel agrees
+//   with the plain version on which taps are ties. (rows + w_out) * 32
+//   bytes: 3.6 KB at 75^2; the limit is raised past 48 KB for wide crops,
+//   so a crop with ceil(h_out / 2) + w_out up to about 7,250 launches
+//   (227 KB) and a wider one is refused (cudaErrorInvalidValue, raised by
+//   the wrapper).
+// - Threads run over (j, c), contiguous in NHWC, so a warp's loads of g
+//   are coalesced; groups of w_out * c threads split the CTA's rows. Each
+//   thread keeps its column's taps in registers and reads each row's from
+//   shared memory (a broadcast): no position arithmetic per element,
+//   32-bit offsets inside an image (its base in 64 bits). It issues the
+//   loads of kRowBatch rows (the 2 x 2 core taps and g, clamped into the
+//   image, so none is predicated) before it uses any, so its ~19 rows at
+//   75^2 take four rounds of load latency; the extra taps load only at
+//   ties.
+// - A fixed-order reduction inside the kernel (cluster_sum: warp shuffles,
+//   the CTA's warps, then cluster rank 0 adding the CTAs' sums over
+//   distributed shared memory in rank order), and rank 0 writes all six
+//   entries of the image's d theta, the exact zeros at [0, 1] and [1, 0]
+//   included. No float atomics and no scratch, so the result is
+//   bit-identical between runs. A NaN position gives NaN in the four used
+//   entries of that image's d theta, as the dense product would.
 //
 // Backward, d images (separable_sampler_bwd_images): d img = ky^T . g . kx,
 // scattered: each output element adds g * hat_y * hat_x to its <= 4 taps
@@ -53,8 +76,6 @@
 #include "sampler_common.cuh"
 
 namespace {
-
-constexpr int kElementsPerBlock = 2048;
 
 // Input pixel sampled by output index i along one axis:
 // p = (scale * u + shift + 1) * half, with u = -1 + step * i and
@@ -142,95 +163,183 @@ __global__ void separable_sampler_fwd_kernel(
   out[idx] = acc;
 }
 
-// Grid (blocks_per_image, N). Block s of image n sums elements
-// e = s * kThreads + tid + k * blocks_per_image * kThreads of that image
-// and writes its four sums to partial[n][s][0..3]:
-// [sum g*dout/dpy*u_i, sum g*dout/dpy, sum g*dout/dpx*u_j, sum g*dout/dpx].
-__global__ void __launch_bounds__(kThreads) separable_sampler_bwd_theta_kernel(
+// Rows whose loads a thread issues together, before it uses any of them:
+// the loop is bound by the latency of its rounds of loads.
+constexpr int kRowBatch = 5;
+
+// One output row's (or column's) taps along its axis, from axis_taps: the
+// two core taps floor(p) + k, k = 0, 1 (every tap where hat is non-zero,
+// and hat' too off a tie), and the extra tap floor(p) - 1, whose hat is 0
+// and whose hat' is -0.5 at a tie (p an integer) and 0 elsewhere. Offsets
+// are the taps' indices times the axis stride, clamped into the image so
+// that every load is in bounds; an outside tap has zero weights and is
+// not live. Offsets and weights lie apart: the loads need the first, the
+// arithmetic after them the second.
+struct __align__(16) TapOffsets {
+  int off[2];
+  int extra_off;
+  float extra_dw;
+};
+struct __align__(16) TapWeights {
+  float w[2];   // hat weights of the core taps
+  float dw[2];  // their hat', JAX's subgradients
+};
+
+__device__ __forceinline__ bool live(const TapWeights& t, int k) {
+  return t.w[k] != 0.0f || t.dw[k] != 0.0f;
+}
+
+// Fills the taps of output index i along an axis of `size` input pixels,
+// `stride` floats apart; returns whether the position is NaN.
+__device__ __forceinline__ bool axis_entry(float scale, float shift, int i,
+                                           float step, float half, int size,
+                                           int stride, TapOffsets& o,
+                                           TapWeights& t) {
+  const float p = sample_pos(scale, shift, i, step, half);
+  float w[3], dw[3];
+  const int first = axis_taps(p, size, w, dw);
+  o.extra_off = min(max(first, 0), size - 1) * stride;
+  o.extra_dw = dw[0];  // w[0] is 0: d = p - floor(p) + 1 >= 1
+  for (int k = 0; k < 2; ++k) {
+    o.off[k] = min(max(first + 1 + k, 0), size - 1) * stride;
+    t.w[k] = w[k + 1];
+    t.dw[k] = dw[k + 1];
+  }
+  return isnan(p);
+}
+
+// Grid n * ctas, one cluster of ctas CTAs per image. Cluster rank r sums
+// the elements (i, j, c) of its rows [r * h_out / ctas,
+// (r + 1) * h_out / ctas); cluster_sum adds the four sums
+// [sum g*dout/dpy*u_i, sum g*dout/dpy, sum g*dout/dpx*u_j, sum g*dout/dpx]
+// over the cluster, and rank 0 writes the image's d theta. The CTA's
+// threads form groups of w_out * c (rounded up to a warp) that each take
+// every groups-th row; a thread keeps its column's taps in registers.
+// Dynamic shared memory: the TapOffsets of the CTA's rows and of all w_out
+// columns, then their TapWeights. Per element, with the core taps' values
+// v, hat weights w and hat' dw:
+//   dout/dp_y = sum_x wx * (sum_y dwy * v + extra_dwy * v(extra row)),
+//   dout/dp_x = sum_x dwx * sum_y wy * v + extra_dwx * sum_y wy * v(extra
+//   column),
+// which is the sum over all three taps of each axis (the extra taps' hat
+// is 0), so the extra taps cost loads only at ties.
+__global__ void __launch_bounds__(kDthetaThreads, 1) separable_sampler_bwd_theta_kernel(
     const float* __restrict__ images, const float* __restrict__ theta,
-    const float* __restrict__ g, float* __restrict__ partial, int h, int w,
-    int c, int h_out, int w_out, float step_y, float step_x,
-    int64_t per_image, int blocks_per_image) {
-  __shared__ float red[4][kThreads];
+    const float* __restrict__ g, float* __restrict__ d_theta, int h, int w,
+    int c, int h_out, int w_out, float step_y, float step_x, int ctas) {
+  extern __shared__ TapOffsets tables[];
   const int tid = threadIdx.x;
-  const int s = blockIdx.x;
-  const int64_t n = blockIdx.y;
+  const int rank = (int)cg::this_cluster().block_rank();
+  const int64_t n = blockIdx.x / ctas;
+  const int row_begin = rank * h_out / ctas;
+  const int rows = (rank + 1) * h_out / ctas - row_begin;
+  TapOffsets* row_offs = tables;
+  TapOffsets* col_offs = tables + rows;
+  TapWeights* row_ws = reinterpret_cast<TapWeights*>(tables + rows + w_out);
+  TapWeights* col_ws = row_ws + rows;
+
+  // theta (N, 2, 3) row-major: sx = t[0], tx = t[2], sy = t[4], ty = t[5].
   const float* t = theta + n * 6;
   const float sx = __ldg(t + 0), tx = __ldg(t + 2);
   const float sy = __ldg(t + 4), ty = __ldg(t + 5);
   const float half_y = 0.5f * (float)(h - 1), half_x = 0.5f * (float)(w - 1);
-  const float* img = images + n * (int64_t)h * w * c;
-  const float* gn = g + n * per_image;
+  const int wc = w * c, row_len = w_out * c;
+  bool nan = false;
+  for (int k = tid; k < rows + w_out; k += kDthetaThreads) {
+    nan |= k < rows
+               ? axis_entry(sy, ty, row_begin + k, step_y, half_y, h, wc, row_offs[k], row_ws[k])
+               : axis_entry(sx, tx, k - rows, step_x, half_x, w, c, col_offs[k - rows],
+                            col_ws[k - rows]);
+  }
 
   float acc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-  for (int64_t e = (int64_t)s * kThreads + tid; e < per_image;
-       e += (int64_t)blocks_per_image * kThreads) {
-    const int ch = (int)(e % c);
-    const int64_t rest = e / c;
-    const int j = (int)(rest % w_out);
-    const int i = (int)(rest / w_out);
-    const float py = sample_pos(sy, ty, i, step_y, half_y);
-    const float px = sample_pos(sx, tx, j, step_x, half_x);
-    if (isnan(py) || isnan(px)) {
-      const float nan = __int_as_float(0x7fc00000);
-      acc[0] = acc[1] = acc[2] = acc[3] = nan;
-      continue;
-    }
-    float wy[3], dwy[3], wx[3], dwx[3];
-    const int y_first = axis_taps(py, h, wy, dwy);
-    const int x_first = axis_taps(px, w, wx, dwx);
-    float d_py = 0.0f, d_px = 0.0f;  // dout/dp_y, dout/dp_x
-    for (int kx = 0; kx < 3; ++kx) {
-      if (wx[kx] == 0.0f && dwx[kx] == 0.0f) continue;
-      const int x = x_first + kx;
-      float col = 0.0f, dcol = 0.0f;  // rows first, as ky . img
-      for (int ky = 0; ky < 3; ++ky) {
-        if (wy[ky] == 0.0f && dwy[ky] == 0.0f) continue;
-        const float v = __ldg(img + ((int64_t)(y_first + ky) * w + x) * c + ch);
-        col += wy[ky] * v;
-        dcol += dwy[ky] * v;
+  const int col_threads = min(kDthetaThreads, (row_len + 31) & ~31);
+  const int groups = kDthetaThreads / col_threads;
+  const int group = tid / col_threads;
+  if (__syncthreads_or(nan)) {  // a NaN hat row poisons the dense product
+    for (int k = 0; k < 4; ++k) acc[k] = __int_as_float(0x7fc00000);
+  } else if (group < groups) {
+    const float* img = images + n * (int64_t)h * wc;
+    const float* gn = g + (n * h_out + row_begin) * (int64_t)row_len;
+    for (int jc = tid - group * col_threads; jc < row_len; jc += col_threads) {
+      const int j = jc / c;
+      const int ch = jc - j * c;
+      const TapOffsets xo = col_offs[j];
+      const TapWeights xw = col_ws[j];
+      const float u_j = out_pos(j, step_x);
+      for (int r0 = group; r0 < rows; r0 += kRowBatch * groups) {
+        // every load of the batch first (a row past the CTA's last reads
+        // the group's first again and is not summed)
+        float v[kRowBatch][2][2], gv[kRowBatch];
+#pragma unroll
+        for (int b = 0; b < kRowBatch; ++b) {
+          int r = r0 + b * groups;
+          r = r < rows ? r : group;
+          const int* yo = row_offs[r].off;
+#pragma unroll
+          for (int ky = 0; ky < 2; ++ky) {
+#pragma unroll
+            for (int kx = 0; kx < 2; ++kx) {
+              v[b][ky][kx] = __ldg(img + yo[ky] + xo.off[kx] + ch);
+            }
+          }
+          gv[b] = __ldg(gn + r * row_len + jc);
+        }
+#pragma unroll
+        for (int b = 0; b < kRowBatch; ++b) {
+          const int r = r0 + b * groups;
+          if (r >= rows) break;
+          const TapWeights yw = row_ws[r];
+          float d_py = 0.0f, d_px = 0.0f;  // dout/dp_y, dout/dp_x
+#pragma unroll
+          for (int kx = 0; kx < 2; ++kx) {
+            float col = 0.0f, dcol = 0.0f;  // rows first, as ky . img
+#pragma unroll
+            for (int ky = 0; ky < 2; ++ky) {
+              const float x = live(yw, ky) && live(xw, kx) ? v[b][ky][kx] : 0.0f;
+              col += yw.w[ky] * x;
+              dcol += yw.dw[ky] * x;
+            }
+            d_py += xw.w[kx] * dcol;
+            d_px += xw.dw[kx] * col;
+          }
+          const float extra_dwy = row_offs[r].extra_dw;
+          if (extra_dwy != 0.0f) {  // a tie row: hat' of the row above
+            const int extra_off = row_offs[r].extra_off;
+            float s = 0.0f;
+            for (int kx = 0; kx < 2; ++kx) {
+              if (live(xw, kx)) s += xw.w[kx] * __ldg(img + extra_off + xo.off[kx] + ch);
+            }
+            d_py += extra_dwy * s;
+          }
+          if (xo.extra_dw != 0.0f) {  // a tie column: hat' of the column left
+            const int* yo = row_offs[r].off;
+            float s = 0.0f;
+            for (int ky = 0; ky < 2; ++ky) {
+              if (live(yw, ky)) s += yw.w[ky] * __ldg(img + yo[ky] + xo.extra_off + ch);
+            }
+            d_px += xo.extra_dw * s;
+          }
+          const float gy = gv[b] * d_py, gx = gv[b] * d_px;
+          acc[0] += gy * out_pos(row_begin + r, step_y);
+          acc[1] += gy;
+          acc[2] += gx * u_j;
+          acc[3] += gx;
+        }
       }
-      d_py += wx[kx] * dcol;
-      d_px += dwx[kx] * col;
-    }
-    const float gv = __ldg(gn + e);
-    const float gy = gv * d_py, gx = gv * d_px;
-    acc[0] += gy * out_pos(i, step_y);
-    acc[1] += gy;
-    acc[2] += gx * out_pos(j, step_x);
-    acc[3] += gx;
-  }
-  for (int k = 0; k < 4; ++k) red[k][tid] = acc[k];
-  __syncthreads();
-  for (int stride = kThreads / 2; stride > 0; stride >>= 1) {
-    if (tid < stride) {
-      for (int k = 0; k < 4; ++k) red[k][tid] += red[k][tid + stride];
-    }
-    __syncthreads();
-  }
-  if (tid < 4) partial[(n * kMaxBlocksPerImage + s) * 4 + tid] = red[tid][0];
-}
-
-// One thread per image: adds the blocks' partial sums in order and writes
-// d theta (2, 3) = [[half_x*Sx1, 0, half_x*Sx0], [0, half_y*Sy1, half_y*Sy0]].
-__global__ void separable_sampler_bwd_theta_finish_kernel(
-    const float* __restrict__ partial, float* __restrict__ d_theta, int n,
-    int blocks_per_image, float half_y, float half_x) {
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= n) return;
-  float sum[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-  for (int s = 0; s < blocks_per_image; ++s) {
-    for (int k = 0; k < 4; ++k) {
-      sum[k] += partial[((int64_t)b * kMaxBlocksPerImage + s) * 4 + k];
     }
   }
-  float* d = d_theta + (int64_t)b * 6;
-  d[0] = half_x * sum[2];
-  d[1] = 0.0f;
-  d[2] = half_x * sum[3];
-  d[3] = 0.0f;
-  d[4] = half_y * sum[0];
-  d[5] = half_y * sum[1];
+  const float sum = cluster_sum(acc, ctas);
+  if (rank == 0 && tid < 4) {
+    // d theta (2, 3) = [[half_x*S2, 0, half_x*S3], [0, half_y*S0, half_y*S1]]
+    float* d = d_theta + n * 6;
+    if (tid < 2) {
+      d[4 + tid] = half_y * sum;
+      d[1 + 2 * tid] = 0.0f;
+    } else {
+      d[2 * (tid - 2)] = half_x * sum;
+    }
+  }
 }
 
 // One thread per output element (n, i, j, c), as the forward: adds
@@ -299,35 +408,24 @@ extern "C" int separable_sampler_fwd(const float* images, const float* theta,
 }
 
 // d theta (n, 2, 3) from images (n, h, w, c), theta (n, 2, 3) and the crop's
-// cotangent g (n, h_out, w_out, c); partial is scratch of
-// n * kMaxBlocksPerImage * 4 floats. All float32, contiguous, on card
-// `device`. Two launches on `stream`; returns the first CUDA error (0 on
-// success).
+// cotangent g (n, h_out, w_out, c), all six entries. All float32,
+// contiguous, on card `device`; offsets inside an image in 32 bits. One
+// cluster launch on `stream`; returns its CUDA error (0 on success).
 extern "C" int separable_sampler_bwd_theta(const float* images,
                                            const float* theta, const float* g,
-                                           float* partial, float* d_theta,
-                                           int n, int h, int w, int c,
-                                           int h_out, int w_out, int device,
-                                           void* stream) {
-  const int64_t per_image = (int64_t)h_out * w_out * c;
-  if (n == 0 || per_image == 0) return 0;
+                                           float* d_theta, int n, int h,
+                                           int w, int c, int h_out, int w_out,
+                                           int device, void* stream) {
+  if (n == 0 || (int64_t)h_out * w_out * c == 0) return 0;
   const cudaError_t set = cudaSetDevice(device);
   if (set != cudaSuccess) return (int)set;
-  int64_t blocks = (per_image + kElementsPerBlock - 1) / kElementsPerBlock;
-  if (blocks > kMaxBlocksPerImage) blocks = kMaxBlocksPerImage;
-  const dim3 grid((unsigned)blocks, (unsigned)n);
-  separable_sampler_bwd_theta_kernel<<<grid, kThreads, 0,
-                                       (cudaStream_t)stream>>>(
-      images, theta, g, partial, h, w, c, h_out, w_out, out_step(h_out),
-      out_step(w_out), per_image, (int)blocks);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  separable_sampler_bwd_theta_finish_kernel<<<(n + kThreads - 1) / kThreads,
-                                              kThreads, 0,
-                                              (cudaStream_t)stream>>>(
-      partial, d_theta, n, (int)blocks, 0.5f * (float)(h - 1),
-      0.5f * (float)(w - 1));
-  return (int)cudaGetLastError();
+  const int ctas = h_out < kClusterCtas ? h_out : kClusterCtas;
+  const int rows = (h_out + ctas - 1) / ctas;  // the most any CTA takes
+  const size_t smem = (size_t)(rows + w_out) * (sizeof(TapOffsets) + sizeof(TapWeights));
+  return (int)launch_clusters(separable_sampler_bwd_theta_kernel, n, ctas,
+                              smem, (cudaStream_t)stream, images, theta, g,
+                              d_theta, h, w, c, h_out, w_out,
+                              out_step(h_out), out_step(w_out), ctas);
 }
 
 // d images (n, h, w, c) from theta (n, 2, 3) and the crop's cotangent g

@@ -49,9 +49,8 @@ import torch
 from loans_tpu_torch.ops import _cuda
 from loans_tpu_torch.ops.geometry import Size
 
-# Scratch of the dtheta kernels: at most this many blocks per image each
-# leave their partial sums (kMaxBlocksPerImage in both .cu files).
-_BWD_THETA_MAX_BLOCKS = 32
+# The d theta kernels index inside an image and inside a crop in 32 bits.
+_MAX_IMAGE_ELEMENTS = 2**31 - 1
 
 
 def _positions(out_dim: int, device) -> torch.Tensor:
@@ -437,12 +436,10 @@ def _crop_kernel(
 
 
 def _bwd_theta_kernel(
-    library: str, owner: Callable, n_sums: int,
-    images: torch.Tensor, theta: torch.Tensor, g: torch.Tensor,
+    library: str, owner: Callable, images: torch.Tensor, theta: torch.Tensor, g: torch.Tensor,
 ) -> torch.Tensor:
-    """The d theta kernel ``<library>_bwd_theta`` (+ its finish kernel),
-    whose blocks leave ``n_sums`` partial sums each; counts in
-    ``owner.launches_bwd_theta``."""
+    """The d theta kernel ``<library>_bwd_theta``, one launch that writes
+    all six entries; counts in ``owner.launches_bwd_theta``."""
     what = f"{library}_bwd_theta"
     g = g.contiguous()
     _check_cuda_float32(what, images=images, theta=theta, g=g)
@@ -453,17 +450,17 @@ def _bwd_theta_kernel(
     if g.shape[0] != n or g.shape[3] != c:
         raise ValueError(f"g must be ({n}, H_out, W_out, {c}), got {tuple(g.shape)}")
     h_out, w_out = g.shape[1], g.shape[2]
-    d_theta = torch.zeros((n, 2, 3), dtype=torch.float32, device=images.device)
     if g.numel() == 0 or images.numel() == 0:
-        return d_theta
-    partial = torch.empty(
-        (n, _BWD_THETA_MAX_BLOCKS, n_sums), dtype=torch.float32, device=images.device
-    )
+        return torch.zeros((n, 2, 3), dtype=torch.float32, device=images.device)
+    if max(h * w * c, h_out * w_out * c) > _MAX_IMAGE_ELEMENTS:
+        raise ValueError(f"{what}: an image {h}x{w}x{c} or crop {h_out}x{w_out}x{c} is too large "
+                         "for the kernel's 32-bit offsets")
+    d_theta = torch.empty((n, 2, 3), dtype=torch.float32, device=images.device)
     stream = torch.cuda.current_stream(images.device).cuda_stream
     _launch(
         library, what, owner, "launches_bwd_theta",
-        images.data_ptr(), theta.data_ptr(), g.data_ptr(), partial.data_ptr(),
-        d_theta.data_ptr(), n, h, w, c, h_out, w_out, images.device.index, stream,
+        images.data_ptr(), theta.data_ptr(), g.data_ptr(), d_theta.data_ptr(),
+        n, h, w, c, h_out, w_out, images.device.index, stream,
     )
     return d_theta
 
@@ -510,7 +507,7 @@ def separable_sampler_bwd_theta(
     Returns:
       (N, 2, 3) float32 d theta (zero off-diagonals). Deterministic.
     """
-    return _bwd_theta_kernel("separable_sampler", sample_separable_kernel, 4, images, theta, g)
+    return _bwd_theta_kernel("separable_sampler", sample_separable_kernel, images, theta, g)
 
 
 def separable_sampler_bwd_images(
@@ -548,7 +545,7 @@ def rotated_sampler_bwd_theta(
     Returns:
       (N, 2, 3) float32 d theta, all six entries. Deterministic.
     """
-    return _bwd_theta_kernel("rotated_sampler", sample_rotated_kernel, 6, images, theta, g)
+    return _bwd_theta_kernel("rotated_sampler", sample_rotated_kernel, images, theta, g)
 
 
 def rotated_sampler_bwd_images(

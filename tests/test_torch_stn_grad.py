@@ -53,6 +53,9 @@ CASES = {
     "border": (lambda r: (r.uniform(size=(2, 16, 18, 3)), np.array(
         [[[0.6, 0.0, 0.7], [0.0, 0.5, 0.8]], [[0.8, 0.0, -0.9], [0.0, 0.9, -1.2]]])), (7, 6)),
     "h_out_1": (lambda r: (r.uniform(size=(3, 12, 12, 2)), axis_aligned_theta(r, 3)), (1, 5)),
+    "w_out_1": (lambda r: (r.uniform(size=(3, 12, 12, 2)), axis_aligned_theta(r, 3)), (5, 1)),
+    # every tap outside the image: the crop and d theta are exactly 0
+    "off_image": (lambda r: (r.uniform(size=(2, 12, 10, 3)), _tile([[0.5, 0, 5.0], [0, 0.5, 5.0]], 2)), (7, 6)),
     # every position on a pixel: p_i = i
     "identity_ties": (lambda r: (r.uniform(size=(2, 9, 9, 2)), _tile([[1, 0, 0], [0, 1, 0]], 2)), (9, 9)),
     # dyadic scale and shift: p = 0, 2, 4, 6, 8 (x) and 0, 1, 2, 3, 4 (y)
