@@ -10,9 +10,11 @@ Phases, one line or more each; any failure exits non-zero:
    torch / CUDA / nvcc versions, and the time to build the CUDA kernels
    from this checkout (one ``nvcc`` per source, all at once);
 2. the forward kernel against its plain PyTorch version on the card (TF32
-   off), with its time, the plain version's, the library yardstick's
-   (``F.grid_sample`` over ``F.affine_grid``) and the bound (CUDA events,
-   median of 25 calls; profiler device time);
+   off), ties, NaN, one-row and one-column crops, an upsampled crop and
+   C = 1 and 4 included, with its time, the plain version's, the library
+   yardstick's (``F.grid_sample`` over ``F.affine_grid``) and the bound
+   (CUDA events, median of 25 calls; profiler device time, L2-warm and
+   L2-cold, one device operation per call);
 2b. the two backward kernels (d theta, d images) against the plain
    backward on the card, the same way, with ``F.grid_sample``'s backward
    as the yardstick, ties, NaN, one-row and one-column crops included; d
@@ -21,7 +23,8 @@ Phases, one line or more each; any failure exits non-zero:
 3. serving: an R-50 224x224 -> 75x75 localizer with the assessor, seeded
    and saved as ``.pt`` snapshots in a temporary log dir, served through
    ``LocalizerInference(device="cuda")``: 2 single-frame requests and 3
-   batches of 32 frames, with the forward kernel's launches checked;
+   batches of 32 frames, with the forward kernel's launches checked and
+   its device time per launch in a traced batch;
 4. the same serving models and weights on the CPU against the card;
 5. training: ``Trainer`` runs the pooled alternating step (8 steps per
    call, batch 64) on uint8 pools resident on the card, R-50 224->75 and
@@ -32,8 +35,9 @@ Phases, one line or more each; any failure exits non-zero:
 6. two training steps on the card against the CPU from the same weights
    (batch 4, full width);
 7. the rotated crop's three kernels (K2: forward, d theta, d images)
-   against their plain versions on the card, ties and NaN included, with
-   their times, the plain versions', ``F.grid_sample``'s and the bounds;
+   against their plain versions on the card (the forward bit for bit),
+   ties, NaN, an upsampled crop and C = 4 included, with their times, the
+   plain versions', ``F.grid_sample``'s and the bounds;
 8. rotation-dropout training: phase 5 at ``rotation_dropout_ratio=0.5`` on
    ``sampler="rotated_pallas"``, with K2's launches checked and K1's 0,
    the head's off-diagonal bias moved, and the snapshot served through
@@ -46,7 +50,7 @@ The line before the last is a JSON object of the six kernels: launches in
 phase 5 (K1) and phase 8 (K2), errors from phases 2, 2b and 7, times and
 bounds at the training batch: ``ms`` per call (CUDA events, host launch
 included), ``device_ms`` (profiler, calls back to back), ``device_cold_ms``
-(d theta: L2 flushed before each call) and ``device_in_situ_ms`` (per
+(forwards and d theta: L2 flushed before each call) and ``device_in_situ_ms`` (per
 launch in the traced training chunk; null where the path launches none).
 The last line is ``{"ok": true, "device": {...}}``. Without a CUDA card it
 exits with an error before printing either.
@@ -96,11 +100,11 @@ K1_TOL = 1e-5  # absolute, images in [0, 1]
 # sums a few products per pixel, with float atomics in run-to-run order,
 # against cotangents of order 1
 K1_BWD_TOL = {"dtheta_rel": 1e-5, "dimages_abs": 1e-5}
-# K2 against its plain version on the card, the same reasons: the forward
-# runs the plain version's float32 operations in its order (1e-5 absolute
-# on images in [0, 1]); d theta sums 5625 pixels' products per image in a
-# fixed tree against torch's reductions; d images as K1's
-K2_TOL = {"fwd_abs": 1e-5, "dtheta_rel": 1e-5, "dimages_abs": 1e-5}
+# K2 against its plain version on the card: the forward runs the plain
+# version's float32 operations in its order, so it is held bit for bit
+# (NaN where the plain version is NaN); d theta sums 5625 pixels' products
+# per image in a fixed tree against torch's reductions; d images as K1's
+K2_TOL = {"dtheta_rel": 1e-5, "dimages_abs": 1e-5}
 # card against CPU: float32 on both, sums in another order. The crop is
 # held at the card's theta (the kernel against the CPU's plain crop, as in
 # phase 2); end to end, a theta error d moves a sample by up to
@@ -187,6 +191,14 @@ def max_err(got: torch.Tensor, want: torch.Tensor) -> float:
     return float(diff.max()) if diff.numel() else 0.0
 
 
+def bit_identical(got: torch.Tensor, want: torch.Tensor) -> bool:
+    """NaN exactly where ``want`` is NaN, and the same bits everywhere
+    else."""
+    nan = torch.isnan(want)
+    return torch.equal(torch.isnan(got), nan) and torch.equal(
+        got[~nan].view(torch.int32), want[~nan].view(torch.int32))
+
+
 def cuda_ms(fn, reps: int = 25) -> float:
     """Median CUDA-event time of ``fn`` in ms, after 3 warm-up runs."""
     for _ in range(3):
@@ -212,16 +224,17 @@ def ms(us: float | None) -> float | None:
     return None if us is None else us / 1e3
 
 
-def dtheta_device_times(tag: str, name: str, kernel, n: int, card: str) -> dict:
-    """The d theta kernel ``name``'s device time per call, L2-warm and
-    L2-cold, by its name; checks that a call is that one kernel and
-    nothing else on the card (no fill, no finish)."""
+def one_kernel_device_times(tag: str, name: str, kernel, n: int, card: str) -> dict:
+    """The kernel ``name``'s device time per call, L2-warm and L2-cold, by
+    its name; checks that a call is that one kernel and nothing else on the
+    card (no fill, no finish, no table pre-pass)."""
     warm = device_time(kernel, match=name)
     cold = device_time(kernel, match=name, cold=True)
     for t in (warm, cold):
         check(len(t.names) == 1 and name in t.names[0] and t.ops_per_call <= 1,
               f"{tag} {name} N={n}: a call ran {t.names}, {t.ops_per_call:g} device operations per call")
-    print(f"{tag} bwd_theta N={n}: device time (profiler, {name}) {fmt_us(warm.per_launch_us)} "
+    kind = name.split("_sampler_")[1]
+    print(f"{tag} {kind} N={n}: device time (profiler, {name}) {fmt_us(warm.per_launch_us)} "
           f"L2-warm, {fmt_us(cold.per_launch_us)} L2-cold (a {FLUSH_MB} MiB copy before each call); "
           f"one device operation per call, {warm.names[0][:60]} ({card})")
     return {"device_ms": ms(warm.per_launch_us), "device_cold_ms": ms(cold.per_launch_us)}
@@ -333,9 +346,9 @@ def kernel_against_plain(card: str) -> dict:
         got = sample_separable_kernel(images, theta, out_size)
         want = sample_separable(images, theta, out_size)
         torch.cuda.synchronize()
-        err = float((got - want).abs().max())
+        err = max_err(got, want)
         if expect is not None:
-            err = max(err, float((got - expect).abs().max()))
+            err = max(err, max_err(got, expect))
         check(err <= K1_TOL, f"K1 {name}: max abs err {err} > {K1_TOL}")
         print(f"K1 {name}: max_abs_err {err:.3e} (tol {K1_TOL})")
         return err, images, theta
@@ -353,25 +366,36 @@ def kernel_against_plain(card: str) -> dict:
         lib_err = float((library().permute(0, 2, 3, 1) - kernel()).abs().max())
         call_ms, plain_ms, lib_ms = cuda_ms(kernel), cuda_ms(plain), cuda_ms(library)
         bound_ms, bound_by = bound("fwd", images, theta, out)
-        device = device_us(kernel, match="separable_sampler_fwd")
         times[n] = {"ms": call_ms, "plain_ms": plain_ms, "library_ms": lib_ms,
-                    "bound_ms": bound_ms, "bound_by": bound_by, "device_ms": ms(device)}
+                    "bound_ms": bound_ms, "bound_by": bound_by}
         print(f"K1 N={n}: per call (CUDA events, host launch included) kernel "
               f"{call_ms * 1e3:.1f} us, plain bmm {plain_ms * 1e3:.1f} us, library grid_sample "
               f"{lib_ms * 1e3:.1f} us (max abs diff to the kernel {lib_err:.2e}); bound "
               f"{bound_ms * 1e3:.2f} us ({bound_by}) ({card})")
-        print(f"K1 N={n}: device time (profiler) kernel {fmt_us(device)}, plain bmm "
+        times[n].update(one_kernel_device_times("K1", "separable_sampler_fwd", kernel, n, card))
+        print(f"K1 N={n}: device time (profiler) kernel {fmt_us(times[n]['device_ms'] * 1e3)}, plain bmm "
               f"{fmt_us(device_us(plain))}, library {fmt_us(device_us(library))} ({card})")
 
     small = rng.uniform(size=(4, CROP, CROP, 3)).astype(np.float32)
     identity = np.tile(np.array([[1, 0, 0], [0, 1, 0]], np.float32), (4, 1, 1))
     errs.append(compare("identity", small, identity, out, expect=on_card(small))[0])
+    ties = rng.uniform(size=(4, 129, 129, 3)).astype(np.float32)  # p_i = i: every position a tie
+    errs.append(compare("identity 129^2->129^2 (all ties)", ties, identity, Size(129, 129), expect=on_card(ties))[0])
     imgs = rng.uniform(size=(4, INPUT, INPUT, 3)).astype(np.float32)
     off = np.tile(np.array([[0.5, 0, 5.0], [0, 0.5, 5.0]], np.float32), (4, 1, 1))
     errs.append(compare("off-image", imgs, off, out, expect=torch.zeros(4, CROP, CROP, 3, device=DEVICE))[0])
     errs.append(compare("border", imgs, BORDER_THETA, out)[0])
     errs.append(compare("h_out=1", imgs, axis_aligned_theta(rng, 4), Size(1, CROP))[0])
     errs.append(compare("w_out=1", imgs, axis_aligned_theta(rng, 4), Size(CROP, 1))[0])
+    nan = axis_aligned_theta(rng, 4)
+    nan[1, 1, 1] = np.nan  # NaN py everywhere in image 1: that image's crop NaN
+    errs.append(compare("NaN theta", imgs, nan, out)[0])
+    # consecutive output rows share input rows
+    small = rng.uniform(size=(4, 64, 64, 3)).astype(np.float32)
+    errs.append(compare("upsampled 64^2->200^2", small, axis_aligned_theta(rng, 4), Size(200, 200))[0])
+    for c in (1, 4):  # not only the three channels of the main path
+        imgs = rng.uniform(size=(4, INPUT, INPUT, c)).astype(np.float32)
+        errs.append(compare(f"C={c}", imgs, axis_aligned_theta(rng, 4), out)[0])
     return {"max_abs_err": max(errs), "times": times}
 
 
@@ -441,7 +465,7 @@ def backward_against_plain(card: str) -> dict:
                   f"{call_ms * 1e3:.1f} us, plain {plain_ms * 1e3:.1f} us, library grid_sample backward "
                   f"{lib_ms * 1e3:.1f} us; bound {bound_ms * 1e3:.2f} us ({bound_by}) ({card})")
             if name == "bwd_theta":
-                t.update(dtheta_device_times("K1", "separable_sampler_bwd_theta", kernel, n, card))
+                t.update(one_kernel_device_times("K1", "separable_sampler_bwd_theta", kernel, n, card))
                 device = t["device_ms"] * 1e3
             else:  # the whole call: its memsets, the scatter and the NaN fill
                 device = device_us(kernel)
@@ -524,10 +548,11 @@ def rotated_against_plain(card: str) -> dict:
               f"K2 bwd_theta {name}: two runs differ")
         e_f, e_t, e_i = max_err(got, want), max_err(got_theta, want_theta), max_err(got_img, want_img)
         s_t = float(want_theta.nan_to_num().abs().max())
-        print(f"K2 {name}: fwd max_abs_err {e_f:.3e} (tol {K2_TOL['fwd_abs']:g}); dtheta max_abs_err "
-              f"{e_t:.3e}, max_rel_err {e_t / max(s_t, 1e-30):.3e} (tol {K2_TOL['dtheta_rel']:g} of max "
-              f"|dtheta| {s_t:.4g}); dimages max_abs_err {e_i:.3e} (tol {K2_TOL['dimages_abs']:g})")
-        check(e_f <= K2_TOL["fwd_abs"], f"K2 fwd {name}: {e_f} > tol")
+        print(f"K2 {name}: fwd max_abs_err {e_f:.3e} (bit-identical: {bit_identical(got, want)}); "
+              f"dtheta max_abs_err {e_t:.3e}, max_rel_err {e_t / max(s_t, 1e-30):.3e} (tol "
+              f"{K2_TOL['dtheta_rel']:g} of max |dtheta| {s_t:.4g}); dimages max_abs_err {e_i:.3e} "
+              f"(tol {K2_TOL['dimages_abs']:g})")
+        check(bit_identical(got, want), f"K2 fwd {name}: not bit-identical to the plain version (max abs err {e_f})")
         check(e_t <= K2_TOL["dtheta_rel"] * s_t, f"K2 bwd_theta {name}: {e_t} > tol")
         check(e_i <= K2_TOL["dimages_abs"], f"K2 bwd_images {name}: {e_i} > tol")
         if ties:  # every position on a pixel: the dense VJP's rule moves nothing
@@ -580,11 +605,11 @@ def rotated_against_plain(card: str) -> dict:
             print(f"K2 {name} N={n}: per call (CUDA events, host launch included) kernel "
                   f"{call_ms * 1e3:.1f} us, plain {plain_ms * 1e3:.1f} us, library grid_sample "
                   f"{lib_ms * 1e3:.1f} us; bound {bound_ms * 1e3:.2f} us ({bound_by}) ({card})")
-            if name == "bwd_theta":
-                t.update(dtheta_device_times("K2", "rotated_sampler_bwd_theta", kernel, n, card))
+            if name != "bwd_images":
+                t.update(one_kernel_device_times("K2", f"rotated_sampler_{name}", kernel, n, card))
                 device = t["device_ms"] * 1e3
-            else:  # the forward kernel alone; d images' whole call (memsets, scatter, NaN fill)
-                device = device_us(kernel, match="rotated_sampler_fwd" if name == "fwd" else "")
+            else:  # the whole call: its memsets, the scatter and the NaN fill
+                device = device_us(kernel)
                 t["device_ms"] = ms(device)
             times.setdefault(name, {})[n] = t
             print(f"K2 {name} N={n}: device time (profiler) kernel {fmt_us(device)}, "
@@ -603,6 +628,10 @@ def rotated_against_plain(card: str) -> dict:
     nan = rotated_theta(rng, 4)
     nan[1, 0, 1], nan[2, 1, 1] = np.nan, np.nan  # NaN px everywhere in image 1, NaN py in image 2
     compare("NaN theta", imgs, nan, out)
+    small = rng.uniform(size=(4, 64, 64, 3)).astype(np.float32)  # neighbouring pixels share taps
+    compare("upsampled 64^2->200^2", small, rotated_theta(rng, 4), Size(200, 200))
+    imgs = rng.uniform(size=(4, INPUT, INPUT, 4)).astype(np.float32)  # the generic-C instance
+    compare("C=4", imgs, rotated_theta(rng, 4), out)
     return {"max_abs_err": errs, "times": times}
 
 
@@ -690,14 +719,20 @@ def print_trace(prof, what: str, wall_ms: float, card: str, top: int = 8) -> Non
 
 
 def profile_batch(inf: LocalizerInference, batch: np.ndarray, card: str) -> None:
-    """One traced ``localize_batch``: wall time, device busy time and the
-    device time of the largest kernels and copies."""
+    """One traced ``localize_batch``: wall time, device busy time, the
+    device time of the largest kernels and copies, and K1's forward's
+    device time per launch, by name."""
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         start = time.perf_counter()
         inf.localize_batch(batch)
         wall_ms = (time.perf_counter() - start) * 1e3
     print_trace(prof, f"localize_batch({len(batch)})", wall_ms, card)
+    fwd = [e for e in device_events(prof) if "separable_sampler_fwd_kernel" in e.key]
+    launches = sum(e.count for e in fwd)
+    us = sum(e.self_device_time_total for e in fwd) / launches if launches else None
+    print(f"trace: in the traced localize_batch({len(batch)}), separable_sampler_fwd {fmt_us(us)} "
+          f"device time per launch ({launches} launches) ({card})")
 
 
 # -- phase 4 --------------------------------------------------------------

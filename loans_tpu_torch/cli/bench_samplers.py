@@ -1,6 +1,6 @@
 """Sampler comparison on the card (port of ``tools/bench_samplers.py``).
 
-    python -m loans_tpu_torch.cli.bench_samplers [--step] [--dtheta]
+    python -m loans_tpu_torch.cli.bench_samplers [--step] [--fwd] [--dtheta]
         [--batch 128] [--rotation-ratio 0.5] [--device cuda]
 
 Prints the card's name and power limit (``nvidia-smi``) first. Then, at
@@ -20,17 +20,22 @@ R-50 localizer and assessor, float32, Adam(amsgrad)) per method
 the JAX tool's pools (256 uint8 scenes, 512 uint8 crops, seed 0): 10 steps
 per call, 2 warm-up calls, 5 timed calls, reported as ms/iter and images/s.
 
-``--dtheta`` times only the two d theta kernels
-(``separable_sampler_bwd_theta``, ``rotated_sampler_bwd_theta``) at N = 32,
-64 and 128, 224x224 -> 75x75: the device time of a whole call from a
-``torch.profiler`` trace, L2-warm (calls back to back, the inputs left in
-the 50 MB L2) and L2-cold (``FLUSH_BYTES`` copied between two buffers
-before each call, that copy left out), and the device operations per call.
-It times whichever ``loans_tpu_torch`` Python imports, so another checkout's
-kernels are timed by running this file by path with that checkout first on
-``PYTHONPATH``:
+``--fwd`` times only the two forward kernels (``sample_separable_kernel``,
+``sample_rotated_kernel``), ``--dtheta`` only the two d theta kernels
+(``separable_sampler_bwd_theta``, ``rotated_sampler_bwd_theta``), each at
+N = 32, 64 and 128, 224x224 -> 75x75, with the theta above: the device
+time per launch from a ``torch.profiler`` trace (each call is one launch;
+the trace may drop events at its edges), L2-warm (calls back to back, the
+inputs left in the 50 MB L2) and L2-cold (``FLUSH_BYTES`` copied between
+two buffers before each call, that copy left out), and the device
+operations per call. Both flags may be given. They time whichever
+``loans_tpu_torch`` Python imports, so another checkout's kernels are
+timed by running this file by path with that checkout first on
+``PYTHONPATH`` (then this checkout, then that one again, in one run on one
+card):
 
-    PYTHONPATH=<other checkout> python loans_tpu_torch/cli/bench_samplers.py --dtheta
+    PYTHONPATH=<other checkout> python loans_tpu_torch/cli/bench_samplers.py --fwd --dtheta
+    python -m loans_tpu_torch.cli.bench_samplers --fwd --dtheta
 
 The JAX tool's scan-and-readback harness and its matmul calibration guard
 against a device whose blocking call could return before the work ended;
@@ -67,7 +72,7 @@ PLAIN = ("separable", "rotated")  # backward on CPU tensors only
 AXIS_ALIGNED_THETA = ((0.7, 0.0, 0.1), (0.0, 0.6, -0.1))
 ROTATED_THETA = ((0.7, 0.15, 0.1), (-0.12, 0.6, -0.1))
 STEPS_PER_CALL, WARMUP_CALLS, TIMED_CALLS = 10, 2, 5
-DTHETA_BATCHES = (32, 64, 128)
+KERNEL_BATCHES = (32, 64, 128)  # --fwd and --dtheta
 FLUSH_BYTES = 256 * 2**20  # copied before each L2-cold call: 5x the H100's 50 MB L2
 
 
@@ -187,21 +192,25 @@ def bench_standalone(device: torch.device) -> None:
     print(f"{'library grid_sample forward+backward':48s} {ms:8.3f} ms", flush=True)
 
 
-def bench_dtheta(device: torch.device, card: str) -> None:
-    """Whole-call device time of each d theta kernel, L2-warm and
-    L2-cold, and its device operations per call."""
-    print(f"dtheta: loans_tpu_torch from {loans_tpu_torch.__path__[0]}", flush=True)
+def bench_kernels(kind: str, device: torch.device, card: str) -> None:
+    """Device time per launch of K1's and K2's ``kind`` kernel (``fwd``:
+    the forwards, ``dtheta``: the d theta kernels), L2-warm and L2-cold,
+    and its device operations per call."""
+    print(f"{kind}: loans_tpu_torch from {loans_tpu_torch.__path__[0]}", flush=True)
+    kernels = {
+        "fwd": (stn.sample_separable_kernel, stn.sample_rotated_kernel),
+        "dtheta": (stn.separable_sampler_bwd_theta, stn.rotated_sampler_bwd_theta),
+    }[kind]
     g = np.random.default_rng(0)
-    for n in DTHETA_BATCHES:
+    for n in KERNEL_BATCHES:
         images = torch.from_numpy(g.uniform(size=(n, IMG.height, IMG.width, 3)).astype(np.float32)).to(device)
         cot = torch.from_numpy(g.normal(size=(n, CROP.height, CROP.width, 3)).astype(np.float32)).to(device)
-        for fn, rows in ((stn.separable_sampler_bwd_theta, AXIS_ALIGNED_THETA),
-                         (stn.rotated_sampler_bwd_theta, ROTATED_THETA)):
+        for fn, rows in zip(kernels, (AXIS_ALIGNED_THETA, ROTATED_THETA)):
             theta = _theta(rows, device, n)
-            call = functools.partial(fn, images, theta, cot)
+            call = functools.partial(fn, images, theta, CROP if kind == "fwd" else cot)
             warm, cold = device_time(call), device_time(call, cold=True)
-            print(f"dtheta {fn.__name__} N={n}: device {fmt_us(warm.per_call_us)} warm, "
-                  f"{fmt_us(cold.per_call_us)} cold, {warm.ops_per_call:g} device operations per call "
+            print(f"{kind} {fn.__name__} N={n}: device {fmt_us(warm.per_launch_us)} warm, "
+                  f"{fmt_us(cold.per_launch_us)} cold, {warm.ops_per_call:g} device operations per call "
                   f"({card})", flush=True)
 
 
@@ -247,6 +256,7 @@ def get_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description="compare the crop's samplers on a CUDA card")
     p.add_argument("--step", action="store_true", help="also time the full alternating step per sampler")
     p.add_argument("--dtheta", action="store_true", help="time only the two d theta kernels, warm and cold")
+    p.add_argument("--fwd", action="store_true", help="time only the two forward kernels, warm and cold")
     p.add_argument("--batch", type=int, default=128, help="batch of the --step runs")
     p.add_argument("--rotation-ratio", type=float, default=0.5)
     p.add_argument("--device", default="cuda", help="a CUDA device (default: cuda)")
@@ -263,8 +273,10 @@ def main(argv=None) -> None:
     print(card, flush=True)
     print(f"device {torch.cuda.get_device_name(device)}, torch {torch.__version__}, CUDA {torch.version.cuda}",
           flush=True)
-    if args.dtheta:
-        bench_dtheta(device, card)
+    if args.fwd or args.dtheta:
+        for kind in ("fwd", "dtheta"):
+            if getattr(args, kind):
+                bench_kernels(kind, device, card)
         return
     bench_standalone(device)
     if args.step:

@@ -20,15 +20,35 @@
 // axis, floor(p) and floor(p) + 1, so the dense contraction is exactly a
 // 4-tap bilinear read with zero padding; the TPU's per-row matrix products
 // (about 100 GFLOP per call at N = 64, almost all of them on zeros) are not
-// carried over. One thread computes one output element (n, i, j, c), NHWC
-// in and out, with 64-bit offsets, float32 weights and sum: over the two
-// column taps of each row tap, then over the rows, in the plain version's
-// order with _rn operations, so the two agree bit for bit. What bounds it
-// on Hopper: memory traffic. Unlike the axis-aligned crop, the taps of
-// neighbouring outputs lie on a rotated footprint, so a warp's reads
-// scatter across image rows; at N = 64 the images (38.5 MB) fit in the
-// 50 MB L2, so repeated taps come from L2. Bound: bytes, the crop written
-// plus the distinct taps touched.
+// carried over. What bounds it on Hopper: bytes, the distinct taps touched
+// and the crop written (a bound of about 5 us at N = 64, 224^2x3 -> 75^2);
+// but a call is short enough that its time goes to a fixed cost (launch,
+// theta, the product tables) and to its threads' instructions and load
+// latency. Unlike the axis-aligned crop, the taps of neighbouring outputs
+// lie on a rotated footprint: one output row's can span about 67 input
+// rows (|t10| = 0.3 over 223 px), so a band's footprint does not fit in
+// shared memory and the forward stays a gather from L1 and L2. The design:
+// - One CTA of kFwdThreads threads per band of whole output rows of one
+//   image, about kFwdThreads pixels (3 rows at 75^2: 1,600 CTAs at N = 64,
+//   six resident on each SM at 40 registers a thread; CTAs of 128 or 512
+//   threads, and 2 pixels a thread with their loads interleaved, measured
+//   no faster; PERF.md). Theta is read once per thread and every
+//   product of a position formed once per CTA: the column table
+//   (t00 * u_j, t10 * u_j) and the row table (t01 * v_i, t11 * v_i) in
+//   dynamic shared memory, (w_out + rows) * 8 bytes (the limit raised past
+//   48 KB for wide crops; past the card's 227 KB, about 29,000 columns, a
+//   launch is refused and the wrapper raises).
+// - One thread per output pixel, 32-bit offsets inside an image (its base
+//   in 64 bits), no division per pixel (the thread steps its row and
+//   column). Its positions are three _rn adds and a _rn product on top of
+//   the tables, the plain version's operations in its order. The channel
+//   loop is unrolled for C = 3 (a generic instance takes any C), so all
+//   four taps' C values are loaded before any arithmetic; a tap outside the
+//   image reads index 0 and is selected away.
+// Float32 weights and sum: over the two column taps of each row tap, then
+// over the rows, in the plain version's order with _rn operations, so the
+// two agree bit for bit; a NaN position gives a NaN pixel, as the dense
+// product does.
 //
 // Backward, d theta (rotated_sampler_bwd_theta). Per output pixel (i, j):
 //   gpx = (W - 1) / 2 * sum_c g * sum_y hat(py - y) sum_x hat'(px - x) img,
@@ -137,40 +157,102 @@ __device__ __forceinline__ Pos positions(const float* __restrict__ t, int i,
   return p;
 }
 
-__global__ void rotated_sampler_fwd_kernel(
+// The forward: kFwdThreads threads per CTA, one output pixel each at a
+// time, and a CTA takes a band of about kFwdThreads pixels (whole output
+// rows) of one image: at 75^2, 3 rows, 25 bands an image.
+constexpr int kFwdThreads = 256;
+
+// Grid n * bands; CTA b of image n takes the output rows [b * h_out /
+// bands, (b + 1) * h_out / bands), one thread per pixel. Dynamic shared
+// memory holds the CTA's product tables, each product rounded on its own
+// (__fmul_rn): (t00 * u_j, t10 * u_j) for each of the w_out columns, then
+// (t01 * v_i, t11 * v_i) for each of its rows. A pixel's positions are
+// then sample_pos's operations from the products on:
+//   px = (((t00 * u_j + t01 * v_i) + t02) + 1) * half_x,
+// so they are the plain version's bit for bit. kC is the channel count,
+// whose values of all four taps a thread loads before it uses any (a tap
+// outside the image reads index 0 and is selected away); 0 takes any c,
+// one channel at a time.
+template <int kC>
+__global__ void __launch_bounds__(kFwdThreads) rotated_sampler_fwd_kernel(
     const float* __restrict__ images, const float* __restrict__ theta,
     float* __restrict__ out, int h, int w, int c, int h_out, int w_out,
-    float step_y, float step_x, int64_t total) {
-  const int64_t idx = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= total) return;
-  const int ch = (int)(idx % c);
-  int64_t rest = idx / c;
-  const int j = (int)(rest % w_out);
-  rest /= w_out;
-  const int i = (int)(rest % h_out);
-  const int64_t n = rest / h_out;
+    float step_y, float step_x, int bands) {
+  constexpr int kLoaded = kC > 0 ? kC : 1;  // channels loaded together
+  const int channels = kC > 0 ? kC : c;
+  extern __shared__ float2 products[];
+  float2* col_p = products;
+  float2* row_p = products + w_out;
+  const int tid = threadIdx.x;
+  const int n = (int)(blockIdx.x / (unsigned)bands);
+  const int band = (int)blockIdx.x - n * bands;
+  const int row_begin = (int)((int64_t)band * h_out / bands);
+  const int rows = (int)((int64_t)(band + 1) * h_out / bands) - row_begin;
 
-  const Pos p = positions(theta + n * 6, i, j, step_y, step_x,
-                          0.5f * (float)(h - 1), 0.5f * (float)(w - 1));
-  if (isnan(p.px) || isnan(p.py)) {  // a NaN hat poisons the dense product
-    out[idx] = __int_as_float(0x7fc00000);
-    return;
-  }
-  const Taps tx = axis_taps(p.px, w);
-  const Taps ty = axis_taps(p.py, h);
-  const float* img = images + n * (int64_t)h * w * c + ch;
-  float acc = 0.0f;
-  for (int ky = 0; ky < 2; ++ky) {
-    float row = 0.0f;  // over the columns of this row tap first
-    for (int kx = 0; kx < 2; ++kx) {
-      const bool live = tx.w[kx] != 0.0f && ty.w[ky] != 0.0f;
-      const float v =
-          live ? __ldg(img + ((int64_t)ty.idx[ky] * w + tx.idx[kx]) * c) : 0.0f;
-      row = __fadd_rn(row, __fmul_rn(tx.w[kx], v));
+  const float* t = theta + (int64_t)n * 6;
+  const float t00 = __ldg(t + 0), t01 = __ldg(t + 1), t02 = __ldg(t + 2);
+  const float t10 = __ldg(t + 3), t11 = __ldg(t + 4), t12 = __ldg(t + 5);
+  for (int k = tid; k < w_out + rows; k += kFwdThreads) {
+    if (k < w_out) {
+      const float u = out_pos(k, step_x);
+      col_p[k] = make_float2(__fmul_rn(t00, u), __fmul_rn(t10, u));
+    } else {
+      const float v = out_pos(row_begin + k - w_out, step_y);
+      row_p[k - w_out] = make_float2(__fmul_rn(t01, v), __fmul_rn(t11, v));
     }
-    acc = __fadd_rn(acc, __fmul_rn(ty.w[ky], row));
   }
-  out[idx] = acc;
+  __syncthreads();
+
+  const float half_y = 0.5f * (float)(h - 1), half_x = 0.5f * (float)(w - 1);
+  const float* img = images + (int64_t)n * h * w * channels;
+  float* o = out + ((int64_t)n * h_out + row_begin) * w_out * channels;
+  const int pixels = rows * w_out;
+  // pixel e = r * w_out + j of the band, advanced by kFwdThreads at a time
+  // without a division: that is dr rows and dj columns
+  const int dr = kFwdThreads / w_out, dj = kFwdThreads - dr * w_out;
+  int r = tid / w_out, j = tid - r * w_out;
+  for (int e = tid; e < pixels; e += kFwdThreads) {
+    const float2 cp = col_p[j], rp = row_p[r];
+    const float px = __fmul_rn(__fadd_rn(__fadd_rn(__fadd_rn(cp.x, rp.x), t02), 1.0f), half_x);
+    const float py = __fmul_rn(__fadd_rn(__fadd_rn(__fadd_rn(cp.y, rp.y), t12), 1.0f), half_y);
+    const Taps tx = axis_taps(px, w);
+    const Taps ty = axis_taps(py, h);
+    const bool nan = isnan(px) || isnan(py);  // a NaN hat poisons the dense product
+    float* dst = o + e * channels;
+    for (int ch0 = 0; ch0 < channels; ch0 += kLoaded) {
+      float v[kLoaded][2][2];
+#pragma unroll
+      for (int ky = 0; ky < 2; ++ky) {
+#pragma unroll
+        for (int kx = 0; kx < 2; ++kx) {
+          const float* tap = img + (ty.idx[ky] * w + tx.idx[kx]) * channels + ch0;
+#pragma unroll
+          for (int cc = 0; cc < kLoaded; ++cc) v[cc][ky][kx] = __ldg(tap + cc);
+        }
+      }
+#pragma unroll
+      for (int cc = 0; cc < kLoaded; ++cc) {
+        float acc = 0.0f;
+#pragma unroll
+        for (int ky = 0; ky < 2; ++ky) {
+          float row = 0.0f;  // over the columns of this row tap first
+#pragma unroll
+          for (int kx = 0; kx < 2; ++kx) {
+            const float x = tx.w[kx] != 0.0f && ty.w[ky] != 0.0f ? v[cc][ky][kx] : 0.0f;
+            row = __fadd_rn(row, __fmul_rn(tx.w[kx], x));
+          }
+          acc = __fadd_rn(acc, __fmul_rn(ty.w[ky], row));
+        }
+        dst[ch0 + cc] = nan ? __int_as_float(0x7fc00000) : acc;
+      }
+    }
+    r += dr;
+    j += dj;
+    if (j >= w_out) {
+      j -= w_out;
+      ++r;
+    }
+  }
 }
 
 // Grid n * ctas, one cluster of ctas CTAs per image. Cluster rank r sums
@@ -309,17 +391,21 @@ extern "C" int rotated_sampler_fwd(const float* images, const float* theta,
                                    float* out, int n, int h, int w, int c,
                                    int h_out, int w_out, int device,
                                    void* stream) {
-  const int64_t total = (int64_t)n * h_out * w_out * c;
-  if (total == 0) return 0;
+  if ((int64_t)n * h_out * w_out * c == 0) return 0;
   // This library carries its own CUDA runtime, whose current card is not
   // PyTorch's: select it.
   const cudaError_t set = cudaSetDevice(device);
   if (set != cudaSuccess) return (int)set;
-  const int64_t blocks = (total + kThreads - 1) / kThreads;
-  rotated_sampler_fwd_kernel<<<(unsigned)blocks, kThreads, 0,
-                               (cudaStream_t)stream>>>(
+  const int band_rows = w_out < kFwdThreads ? kFwdThreads / w_out : 1;
+  const int bands = (h_out + band_rows - 1) / band_rows;
+  const int rows = (h_out + bands - 1) / bands;  // the most any CTA takes
+  const size_t smem = (size_t)(w_out + rows) * sizeof(float2);
+  auto kernel = c == 3 ? rotated_sampler_fwd_kernel<3> : rotated_sampler_fwd_kernel<0>;
+  const cudaError_t err = allow_smem(kernel, smem);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<(unsigned)n * (unsigned)bands, kFwdThreads, smem, (cudaStream_t)stream>>>(
       images, theta, out, h, w, c, h_out, w_out, out_step(h_out),
-      out_step(w_out), total);
+      out_step(w_out), bands);
   return (int)cudaGetLastError();
 }
 

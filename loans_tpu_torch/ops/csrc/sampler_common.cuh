@@ -1,9 +1,9 @@
 // Pieces shared by the crop kernels' sources (separable_sampler.cu,
 // rotated_sampler.cu): the launch width, the output positions as the plain
-// PyTorch version forms them, the NaN fill of d images, the d theta
-// kernels' cluster reduction and cluster launch, and the C error entry
-// point. Each library includes this file; ops/_cuda.py hashes it into
-// every library's build key.
+// PyTorch version forms them, the NaN fill of d images, the dynamic
+// shared-memory limit, the d theta kernels' cluster reduction and cluster
+// launch, and the C error entry point. Each library includes this file;
+// ops/_cuda.py hashes it into every library's build key.
 
 #pragma once
 
@@ -90,22 +90,29 @@ __device__ float cluster_sum(float (&acc)[kSums], int ctas) {
   return total;
 }
 
+// Lets `kernel` launch with `smem` bytes of dynamic shared memory: raises
+// its limit past the default 48 KB when asked for more. Returns the CUDA
+// error (cudaErrorInvalidValue past the card's 227 KB) and clears it, so a
+// later call does not read it again.
+template <typename... Params>
+cudaError_t allow_smem(void (*kernel)(Params...), size_t smem) {
+  if (smem <= 48 * 1024) return cudaSuccess;
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) cudaGetLastError();
+  return err;
+}
+
 // Launches `kernel` on one 1-D cluster of `ctas` CTAs (kDthetaThreads
-// each) per image, n images, with `smem` bytes of dynamic shared memory (the limit
-// raised past 48 KB when asked for). Returns the CUDA error of the launch
-// (0 on success) and clears it, so a later call does not read it again.
+// each) per image, n images, with `smem` bytes of dynamic shared memory
+// (allow_smem). Returns the CUDA error of the launch (0 on success) and
+// clears it, so a later call does not read it again.
 template <typename... Params, typename... Args>
 cudaError_t launch_clusters(void (*kernel)(Params...), int n, int ctas,
                             size_t smem, cudaStream_t stream,
                             Args... args) {
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) {
-      cudaGetLastError();
-      return err;
-    }
-  }
+  const cudaError_t allowed = allow_smem(kernel, smem);
+  if (allowed != cudaSuccess) return allowed;
   cudaLaunchConfig_t config = {};
   config.gridDim = dim3((unsigned)n * (unsigned)ctas);
   config.blockDim = dim3(kDthetaThreads);

@@ -7,21 +7,43 @@
 // the MXU) and, for the backward, the JAX VJP of sample_separable that its
 // custom_vjp runs (loans_tpu/ops/stn.py:641-650, dense matmuls in XLA).
 //
-// Forward. What bounds it on Hopper: at the serving point (224x224x3
-// float32 image, 75x75 crop) each output reads at most 4 taps of a 602 KB
-// image and the crop written is 67.5 KB, so the work is memory traffic,
-// not arithmetic: latency-bound at small batch, bandwidth-bound at large
-// batch. The dense ky . img . kx^T would spend about 30 MFLOP per image
-// multiplying zeros. What the design does about it: a hat row has at most
-// two non-zero taps, y0 = floor(p) and y0 + 1, so the product is exactly a
-// 4-tap bilinear read with zero padding. One thread computes one output
-// element (n, i, j, c) from those taps, in NHWC in and out (no transposes
-// around the call; neighbouring threads write neighbouring addresses),
-// with the weights and sum in float32 and 64-bit offsets. Sampling
-// positions and hat weights are evaluated with the same float32
-// operations, in the same order, as the plain PyTorch version
-// (sample_separable), and the sum contracts rows first, then columns, as
-// its two matmuls do.
+// Forward (separable_sampler_fwd). A hat row has at most two non-zero
+// taps, floor(p) and floor(p) + 1, so the dense ky . img . kx^T (about 30
+// MFLOP per image, almost all of it on zeros) is exactly a 4-tap bilinear
+// read with zero padding, NHWC in and out. What bounds it on Hopper: bytes,
+// the touched image region read and the crop written (at N = 64,
+// 224^2x3 -> 75^2: about 12 MB and 4.3 MB, under 5 us of HBM time); but a
+// call is short enough that its time goes to a fixed cost (launch, the
+// theta loads and tap tables) and to its threads' instructions and rounds
+// of load latency: per image only 150 positions are distinct (one per
+// output row and column) for 16,875 elements. The design:
+// - One CTA of kFwdThreads threads per band of whole output rows of one
+//   image, about kFwdThreads pixels: at 75^2, 3 rows, 25 bands an image,
+//   so 800 CTAs at N = 32 and 1,600 at N = 64, eight resident on each SM
+//   (32 registers a thread), so each SM overlaps one CTA's table build and
+//   loads with the others'. CTAs of 128 or 512 threads (bands of 1 or 6
+//   rows), threads over (j, c) with bands of 2-8 rows, and the band's input
+//   rows copied into shared memory by cp.async.bulk measured slower
+//   (PERF.md).
+// - Tap tables, built once per CTA in dynamic shared memory by axis_entry
+//   (the d theta kernel's): for each of its rows and for each of the w_out
+//   columns, the two core taps' offsets, clamped into the image, and their
+//   hat weights, (rows + w_out) * 32 bytes (2.5 KB at 75^2). Positions come
+//   from sample_pos, the one function every K1 kernel uses. The limit is
+//   raised past 48 KB for wide crops, so a crop with w_out up to about
+//   7,250 launches (227 KB) and a wider one is refused
+//   (cudaErrorInvalidValue, raised by the wrapper).
+// - One thread per output pixel, stepping over the band's pixels without a
+//   division, 32-bit offsets inside an image (its base in 64 bits). It reads
+//   its row's and column's taps from the tables, then issues the loads of
+//   both input rows, all four taps and all C channels (unrolled for C = 3,
+//   a generic instance takes any C), before it uses any: one round of load
+//   latency. A tap outside the image is clamped in, so no load is
+//   predicated, and selected away (not multiplied by 0), so an off-image
+//   crop is exactly 0. A warp's stores cover 32 neighbouring pixels.
+// Weights and sum in float32, rows first, then columns, as the plain
+// version's two matmuls (sample_separable); a NaN position gives NaN in
+// its row or column of the crop, as the dense product does.
 //
 // Backward, d theta (separable_sampler_bwd_theta). Per image it needs four
 // sums over every output element (i, j, c): g * dout/dp_y times u_i and
@@ -123,46 +145,6 @@ __device__ __forceinline__ int axis_taps(float p, int size, float w[3],
   return first;
 }
 
-__global__ void separable_sampler_fwd_kernel(
-    const float* __restrict__ images, const float* __restrict__ theta,
-    float* __restrict__ out, int h, int w, int c, int h_out, int w_out,
-    float step_y, float step_x, int64_t total) {
-  const int64_t idx = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= total) return;
-  const int ch = (int)(idx % c);
-  int64_t rest = idx / c;
-  const int j = (int)(rest % w_out);
-  rest /= w_out;
-  const int i = (int)(rest % h_out);
-  const int64_t n = rest / h_out;
-
-  // theta (N, 2, 3) row-major: sx = t[0], tx = t[2], sy = t[4], ty = t[5].
-  const float* t = theta + n * 6;
-  const float py = sample_pos(__ldg(t + 4), __ldg(t + 5), i, step_y,
-                              0.5f * (float)(h - 1));
-  const float px = sample_pos(__ldg(t + 0), __ldg(t + 2), j, step_x,
-                              0.5f * (float)(w - 1));
-  if (isnan(py) || isnan(px)) {  // a NaN hat row poisons the dense product
-    out[idx] = __int_as_float(0x7fc00000);
-    return;
-  }
-  const int y0 = first_tap(py, h);
-  const int x0 = first_tap(px, w);
-
-  const float* img = images + n * (int64_t)h * w * c + ch;
-  float acc = 0.0f;
-  for (int x = x0; x <= x0 + 1; ++x) {
-    if (x < 0 || x >= w) continue;
-    float col = 0.0f;  // sum over rows, as ky . img
-    for (int y = y0; y <= y0 + 1; ++y) {
-      if (y < 0 || y >= h) continue;
-      col += hat(py, y) * __ldg(img + ((int64_t)y * w + x) * c);
-    }
-    acc += hat(px, x) * col;  // then over columns, as (.) kx^T
-  }
-  out[idx] = acc;
-}
-
 // Rows whose loads a thread issues together, before it uses any of them:
 // the loop is bound by the latency of its rounds of loads.
 constexpr int kRowBatch = 5;
@@ -206,6 +188,107 @@ __device__ __forceinline__ bool axis_entry(float scale, float shift, int i,
     t.dw[k] = dw[k + 1];
   }
   return isnan(p);
+}
+
+// The forward: kFwdThreads threads per CTA, one output pixel each at a
+// time, and a CTA takes a band of about kFwdThreads pixels (whole output
+// rows) of one image: at 75^2, 3 rows, 25 bands an image.
+constexpr int kFwdThreads = 256;
+
+// Grid n * bands; CTA b of image n takes the output rows [b * h_out /
+// bands, (b + 1) * h_out / bands), one thread per pixel. Dynamic shared
+// memory holds its tap tables as the d theta kernel's (its row entries,
+// then the w_out column entries: TapOffsets, then TapWeights), built once
+// per CTA; a NaN position stores a NaN hat weight, which is live and so
+// turns every element of its row or column into NaN, as the dense product
+// does. kC is the channel count, whose values of all four taps a thread
+// loads before it uses any; 0 takes any c, one channel at a time. Per
+// element (i, j, c) with the core taps' values v, summed rows first:
+//   out = sum_kx wx[kx] * (sum_ky wy[ky] * v[ky][kx]),
+// a tap that is not live (outside the image) selected away.
+template <int kC>
+__global__ void __launch_bounds__(kFwdThreads) separable_sampler_fwd_kernel(
+    const float* __restrict__ images, const float* __restrict__ theta,
+    float* __restrict__ out, int h, int w, int c, int h_out, int w_out,
+    float step_y, float step_x, int bands) {
+  constexpr int kLoaded = kC > 0 ? kC : 1;  // channels loaded together
+  const int channels = kC > 0 ? kC : c;
+  extern __shared__ TapOffsets tables[];
+  const int tid = threadIdx.x;
+  const int n = (int)(blockIdx.x / (unsigned)bands);
+  const int band = (int)blockIdx.x - n * bands;
+  const int row_begin = (int)((int64_t)band * h_out / bands);
+  const int rows = (int)((int64_t)(band + 1) * h_out / bands) - row_begin;
+  TapOffsets* row_offs = tables;
+  TapOffsets* col_offs = tables + rows;
+  TapWeights* row_ws = reinterpret_cast<TapWeights*>(tables + rows + w_out);
+  TapWeights* col_ws = row_ws + rows;
+
+  // theta (N, 2, 3) row-major: sx = t[0], tx = t[2], sy = t[4], ty = t[5].
+  const float* t = theta + (int64_t)n * 6;
+  const float sx = __ldg(t + 0), tx = __ldg(t + 2);
+  const float sy = __ldg(t + 4), ty = __ldg(t + 5);
+  const float half_y = 0.5f * (float)(h - 1), half_x = 0.5f * (float)(w - 1);
+  const int wc = w * channels;
+  for (int k = tid; k < rows + w_out; k += kFwdThreads) {
+    TapWeights* entry = k < rows ? &row_ws[k] : &col_ws[k - rows];
+    const bool nan = k < rows
+        ? axis_entry(sy, ty, row_begin + k, step_y, half_y, h, wc, row_offs[k], *entry)
+        : axis_entry(sx, tx, k - rows, step_x, half_x, w, channels, col_offs[k - rows], *entry);
+    if (nan) entry->w[0] = __int_as_float(0x7fc00000);
+  }
+  __syncthreads();
+
+  const float* img = images + (int64_t)n * h * wc;
+  float* o = out + ((int64_t)n * h_out + row_begin) * w_out * channels;
+  const int pixels = rows * w_out;
+  // pixel e = r * w_out + j of the band, advanced by kFwdThreads at a time
+  // without a division: that is dr rows and dj columns
+  const int dr = kFwdThreads / w_out, dj = kFwdThreads - dr * w_out;
+  int r = tid / w_out, j = tid - r * w_out;
+  for (int e = tid; e < pixels; e += kFwdThreads) {
+    const TapOffsets yo = row_offs[r], xo = col_offs[j];
+    const TapWeights yw = row_ws[r], xw = col_ws[j];
+    float* dst = o + e * channels;
+    for (int ch0 = 0; ch0 < channels; ch0 += kLoaded) {
+      float v[kLoaded][2][2];
+#pragma unroll
+      for (int ky = 0; ky < 2; ++ky) {
+#pragma unroll
+        for (int kx = 0; kx < 2; ++kx) {
+          const float* tap = img + yo.off[ky] + xo.off[kx] + ch0;
+#pragma unroll
+          for (int cc = 0; cc < kLoaded; ++cc) v[cc][ky][kx] = __ldg(tap + cc);
+        }
+      }
+#pragma unroll
+      for (int cc = 0; cc < kLoaded; ++cc) {
+        float acc = 0.0f;
+#pragma unroll
+        for (int kx = 0; kx < 2; ++kx) {
+          float col = 0.0f;  // over the rows first, as ky . img
+#pragma unroll
+          for (int ky = 0; ky < 2; ++ky) {
+            col += yw.w[ky] * (live(yw, ky) && live(xw, kx) ? v[cc][ky][kx] : 0.0f);
+          }
+          acc += xw.w[kx] * col;  // then over the columns, as (.) kx^T
+        }
+        dst[ch0 + cc] = acc;
+      }
+    }
+    r += dr;
+    j += dj;
+    if (j >= w_out) {
+      j -= w_out;
+      ++r;
+    }
+  }
+}
+
+// Dynamic shared memory of a kernel with tap tables for `rows` output rows
+// and `cols` output columns.
+size_t tap_table_bytes(int rows, int cols) {
+  return (size_t)(rows + cols) * (sizeof(TapOffsets) + sizeof(TapWeights));
 }
 
 // Grid n * ctas, one cluster of ctas CTAs per image. Cluster rank r sums
@@ -393,17 +476,21 @@ extern "C" int separable_sampler_fwd(const float* images, const float* theta,
                                      float* out, int n, int h, int w, int c,
                                      int h_out, int w_out, int device,
                                      void* stream) {
-  const int64_t total = (int64_t)n * h_out * w_out * c;
-  if (total == 0) return 0;
+  if ((int64_t)n * h_out * w_out * c == 0) return 0;
   // This library carries its own CUDA runtime, whose current card is not
   // PyTorch's: select it.
   const cudaError_t set = cudaSetDevice(device);
   if (set != cudaSuccess) return (int)set;
-  const int64_t blocks = (total + kThreads - 1) / kThreads;
-  separable_sampler_fwd_kernel<<<(unsigned)blocks, kThreads, 0,
-                                 (cudaStream_t)stream>>>(
+  const int band_rows = w_out < kFwdThreads ? kFwdThreads / w_out : 1;
+  const int bands = (h_out + band_rows - 1) / band_rows;
+  const int rows = (h_out + bands - 1) / bands;  // the most any CTA takes
+  const size_t smem = tap_table_bytes(rows, w_out);
+  auto kernel = c == 3 ? separable_sampler_fwd_kernel<3> : separable_sampler_fwd_kernel<0>;
+  const cudaError_t err = allow_smem(kernel, smem);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<(unsigned)n * (unsigned)bands, kFwdThreads, smem, (cudaStream_t)stream>>>(
       images, theta, out, h, w, c, h_out, w_out, out_step(h_out),
-      out_step(w_out), total);
+      out_step(w_out), bands);
   return (int)cudaGetLastError();
 }
 
@@ -421,7 +508,7 @@ extern "C" int separable_sampler_bwd_theta(const float* images,
   if (set != cudaSuccess) return (int)set;
   const int ctas = h_out < kClusterCtas ? h_out : kClusterCtas;
   const int rows = (h_out + ctas - 1) / ctas;  // the most any CTA takes
-  const size_t smem = (size_t)(rows + w_out) * (sizeof(TapOffsets) + sizeof(TapWeights));
+  const size_t smem = tap_table_bytes(rows, w_out);
   return (int)launch_clusters(separable_sampler_bwd_theta_kernel, n, ctas,
                               smem, (cudaStream_t)stream, images, theta, g,
                               d_theta, h, w, c, h_out, w_out,

@@ -49,7 +49,8 @@ import torch
 from loans_tpu_torch.ops import _cuda
 from loans_tpu_torch.ops.geometry import Size
 
-# The d theta kernels index inside an image and inside a crop in 32 bits.
+# The forward and d theta kernels index inside an image and inside a crop
+# in 32 bits.
 _MAX_IMAGE_ELEMENTS = 2**31 - 1
 
 
@@ -408,6 +409,13 @@ def _check_crop_inputs(what: str, images: torch.Tensor, theta: torch.Tensor) -> 
     _check_theta(theta, images.shape[0])
 
 
+def _check_offsets(what: str, image: tuple[int, int, int], crop: tuple[int, int, int]) -> None:
+    (h, w, c), (h_out, w_out, _) = image, crop
+    if max(h * w * c, h_out * w_out * c) > _MAX_IMAGE_ELEMENTS:
+        raise ValueError(f"{what}: an image {h}x{w}x{c} or crop {h_out}x{w_out}x{c} is too large "
+                         "for the kernel's 32-bit offsets")
+
+
 def _launch(library: str, entry: str, owner: Callable, counter: str, *args) -> None:
     """Launch ``entry`` of ``csrc/<library>.cu`` on the current stream,
     raise on a CUDA error, then add one to ``owner.<counter>``."""
@@ -420,12 +428,14 @@ def _launch(library: str, entry: str, owner: Callable, counter: str, *args) -> N
 def _crop_kernel(
     library: str, owner: Callable, images: torch.Tensor, theta: torch.Tensor, out_size: Size
 ) -> torch.Tensor:
-    """The forward kernel ``<library>_fwd``; counts in ``owner.launches``."""
+    """The forward kernel ``<library>_fwd``, one launch; counts in
+    ``owner.launches``."""
     n, h, w, c = images.shape
     h_out, w_out = int(out_size.height), int(out_size.width)
     out = torch.empty((n, h_out, w_out, c), dtype=torch.float32, device=images.device)
     if out.numel() == 0:
         return out
+    _check_offsets(f"{library}_fwd", (h, w, c), (h_out, w_out, c))
     stream = torch.cuda.current_stream(images.device).cuda_stream
     _launch(
         library, f"{library}_fwd", owner, "launches",
@@ -452,9 +462,7 @@ def _bwd_theta_kernel(
     h_out, w_out = g.shape[1], g.shape[2]
     if g.numel() == 0 or images.numel() == 0:
         return torch.zeros((n, 2, 3), dtype=torch.float32, device=images.device)
-    if max(h * w * c, h_out * w_out * c) > _MAX_IMAGE_ELEMENTS:
-        raise ValueError(f"{what}: an image {h}x{w}x{c} or crop {h_out}x{w_out}x{c} is too large "
-                         "for the kernel's 32-bit offsets")
+    _check_offsets(what, (h, w, c), (h_out, w_out, c))
     d_theta = torch.empty((n, 2, 3), dtype=torch.float32, device=images.device)
     stream = torch.cuda.current_stream(images.device).cuda_stream
     _launch(

@@ -67,6 +67,15 @@ def test_entry_point_arguments_match(library, entry):
     assert restype is want_ret, entry
 
 
+def test_fwd_takes_no_scratch():
+    """The forward kernels build their tables inside the one launch:
+    images, theta and out are their only pointers besides the stream."""
+    for library in _cuda.SIGNATURES:
+        argtypes, _ = _definitions(library)[f"{library}_fwd"]
+        assert argtypes.count(ctypes.c_void_p) == 4, library
+        assert argtypes[:3] == [ctypes.c_void_p] * 3 and argtypes[-1] is ctypes.c_void_p, library
+
+
 def test_bwd_theta_takes_no_scratch():
     """The d theta kernels reduce inside one launch: images, theta, g and
     d theta are their only pointers besides the stream."""

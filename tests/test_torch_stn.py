@@ -64,11 +64,29 @@ def _port(fn, img, theta, out):
     return fn(torch.from_numpy(img), torch.from_numpy(theta), Size(*out)).numpy()
 
 
+def nan_theta(rng):
+    """NaN theta11 in image 1: py is NaN on every row of it."""
+    theta = axis_aligned_theta(rng, 3)
+    theta[1, 1, 1] = np.nan
+    return theta
+
+
+def dyadic_theta(n):
+    """Positions on pixels and on half pixels, exact in float32 at 9 -> 5."""
+    return np.tile(np.array([[[0.5, 0.0, 0.25], [0.0, 0.5, -0.25]]], np.float32), (n, 1, 1))
+
+
 CASES = {
     "random": (lambda rng: (rng.uniform(size=(4, 24, 20, 3)), axis_aligned_theta(rng, 4)), (9, 11)),
     "border": (lambda rng: (rng.uniform(size=(2, 16, 18, 3)), border_theta()), (7, 6)),
     "h_out_1": (lambda rng: (rng.uniform(size=(3, 12, 12, 2)), axis_aligned_theta(rng, 3)), (1, 5)),
     "w_out_1": (lambda rng: (rng.uniform(size=(3, 12, 12, 2)), axis_aligned_theta(rng, 3)), (4, 1)),
+    "nan": (lambda rng: (rng.uniform(size=(3, 10, 12, 3)), nan_theta(rng)), (6, 7)),
+    "dyadic_ties": (lambda rng: (rng.uniform(size=(2, 9, 9, 2)), dyadic_theta(2)), (5, 5)),
+    # consecutive output rows and columns share input pixels
+    "upsample": (lambda rng: (rng.uniform(size=(2, 9, 9, 3)), axis_aligned_theta(rng, 2)), (20, 20)),
+    "c1": (lambda rng: (rng.uniform(size=(3, 16, 14, 1)), axis_aligned_theta(rng, 3)), (7, 9)),
+    "c4": (lambda rng: (rng.uniform(size=(2, 16, 14, 4)), axis_aligned_theta(rng, 2)), (6, 8)),
 }
 
 

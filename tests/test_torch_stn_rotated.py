@@ -74,6 +74,9 @@ CASES = {
     # dyadic rotation: positions on pixels and on half pixels
     "dyadic_ties": (lambda r: (r.uniform(size=(2, 9, 9, 1)), _tile([[0.5, 0.25, 0], [-0.25, 0.5, 0]], 2)), (5, 5)),
     "nan": (lambda r: (r.uniform(size=(3, 12, 10, 2)), _nan_theta(r)), (5, 6)),
+    # neighbouring output pixels share taps
+    "upsample": (lambda r: (r.uniform(size=(2, 9, 9, 3)), rotated_theta(r, 2)), (20, 20)),
+    "c4": (lambda r: (r.uniform(size=(2, 12, 10, 4)), rotated_theta(r, 2)), (5, 6)),
 }
 TIES = ("identity_ties",)
 
