@@ -17,9 +17,10 @@ Phases, one line or more each; any failure exits non-zero:
    L2-cold, one device operation per call);
 2b. the two backward kernels (d theta, d images) against the plain
    backward on the card, the same way, with ``F.grid_sample``'s backward
-   as the yardstick, ties, NaN, one-row and one-column crops included; d
-   theta bit-identical between two runs, one device operation per call,
-   and timed L2-warm and L2-cold;
+   as the yardstick, ties, NaN, one-row and one-column crops, and for d
+   images a zero scale, a flipped scale, an upsampled crop, an infinite
+   theta and a huge finite theta included; each bit-identical between two
+   runs, one device operation per call, and timed L2-warm and L2-cold;
 3. serving: an R-50 224x224 -> 75x75 localizer with the assessor, seeded
    and saved as ``.pt`` snapshots in a temporary log dir, served through
    ``LocalizerInference(device="cuda")``: 2 single-frame requests and 3
@@ -36,8 +37,10 @@ Phases, one line or more each; any failure exits non-zero:
    (batch 4, full width);
 7. the rotated crop's three kernels (K2: forward, d theta, d images)
    against their plain versions on the card (the forward bit for bit),
-   ties, NaN, an upsampled crop and C = 4 included, with their times, the
-   plain versions', ``F.grid_sample``'s and the bounds;
+   ties, NaN, an upsampled crop, C = 4, a zero scale, a flipped scale, a
+   rank-1 and a near-singular theta, an infinite and a huge finite theta
+   included, with their times (one device operation per call, L2-warm and
+   L2-cold), the plain versions', ``F.grid_sample``'s and the bounds;
 8. rotation-dropout training: phase 5 at ``rotation_dropout_ratio=0.5`` on
    ``sampler="rotated_pallas"``, with K2's launches checked and K1's 0,
    the head's off-diagonal bias moved, and the snapshot served through
@@ -50,8 +53,8 @@ The line before the last is a JSON object of the six kernels: launches in
 phase 5 (K1) and phase 8 (K2), errors from phases 2, 2b and 7, times and
 bounds at the training batch: ``ms`` per call (CUDA events, host launch
 included), ``device_ms`` (profiler, calls back to back), ``device_cold_ms``
-(forwards and d theta: L2 flushed before each call) and ``device_in_situ_ms`` (per
-launch in the traced training chunk; null where the path launches none).
+(L2 flushed before each call) and ``device_in_situ_ms`` (per launch in the
+traced training chunk; null where the path launches none, as for d images).
 The last line is ``{"ok": true, "device": {...}}``. Without a CUDA card it
 exits with an error before printing either.
 """
@@ -96,15 +99,32 @@ POOL_SCENES, POOL_CROPS = 512, 1024
 K1_TOL = 1e-5  # absolute, images in [0, 1]
 # backward kernels against the plain backward on the card: d theta sums
 # ~17k products per image in another order (a fixed tree in the kernel,
-# matmuls in the plain version), so relative to its largest entry; d images
-# sums a few products per pixel, with float atomics in run-to-run order,
-# against cotangents of order 1
-K1_BWD_TOL = {"dtheta_rel": 1e-5, "dimages_abs": 1e-5}
+# matmuls in the plain version), so relative to its largest entry. d images
+# sums a pixel's products in a fixed order in the kernel and in the plain
+# version's matmuls or scatter in theirs; a float32 sum of n terms errs by
+# up to about n * 2^-24 of their magnitude, in either order. So d images is
+# held to the larger of 1e-5 absolute (a few products of cotangents of
+# order 1: every crop of 224^2 -> 75^2 at scales of 0.3 and more) and n *
+# 2^-24 of its largest entry, n the most products any pixel of this call
+# sums (dimages_terms): 51 on the 16x800 crop of a 64^2 image, over 100
+# on an upsampled 64^2 -> 200^2 crop. n * 2^-24 is capped at 1e-5 of the
+# largest entry, as d theta, where a pixel sums hundreds or thousands (a
+# zero scale sends all h_out * w_out = 5625 outputs to a pixel, a rank-1
+# theta a line of them).
+K1_BWD_TOL = {"dtheta_rel": 1e-5, "dimages_abs": 1e-5, "dimages_rel": 1e-5}
 # K2 against its plain version on the card: the forward runs the plain
 # version's float32 operations in its order, so it is held bit for bit
 # (NaN where the plain version is NaN); d theta sums 5625 pixels' products
 # per image in a fixed tree against torch's reductions; d images as K1's
-K2_TOL = {"dtheta_rel": 1e-5, "dimages_abs": 1e-5}
+K2_TOL = {"dtheta_rel": 1e-5, "dimages_abs": 1e-5, "dimages_rel": 1e-5}
+# degenerate thetas for d images (phases 2b and 7): every output on one
+# pixel, negative scales, an infinite theta00 at odd w_out (u = 0 exactly at
+# j = 32 of 65, where inf * 0 is NaN: that image's d images all NaN) and
+# theta00 = 1e30 (past 2^96, so K2 scans its positions for NaN; none is)
+ZERO_SCALE = [[0, 0, -0.21], [0, 0, 0.13]]
+FLIP = [[-0.7, 0.2, 0.1], [-0.15, -0.9, 0.05]]
+INF_THETA = [[np.inf, 0.1, 0.1], [0.2, 0.5, 0]]
+HUGE_THETA = [[1e30, 0.1, 0.1], [0.2, 0.5, 0]]
 # card against CPU: float32 on both, sums in another order. The crop is
 # held at the card's theta (the kernel against the CPU's plain crop, as in
 # phase 2); end to end, a theta error d moves a sample by up to
@@ -197,6 +217,32 @@ def bit_identical(got: torch.Tensor, want: torch.Tensor) -> bool:
     nan = torch.isnan(want)
     return torch.equal(torch.isnan(got), nan) and torch.equal(
         got[~nan].view(torch.int32), want[~nan].view(torch.int32))
+
+
+def dimages_terms(theta: torch.Tensor, out_size: Size, h: int, w: int, rotated: bool) -> int:
+    """The most products one pixel of d images sums in this call: the
+    outputs (i, j) with a non-zero hat on it along both axes."""
+    if not rotated:  # (#i reaching row y) * (#j reaching column x)
+        rows = (stn._hat(stn._offsets(theta[:, 1, 1], theta[:, 1, 2], out_size.height, h)) > 0).sum(1)
+        cols = (stn._hat(stn._offsets(theta[:, 0, 0], theta[:, 0, 2], out_size.width, w)) > 0).sum(1)
+        return int((rows.amax(1) * cols.amax(1)).max())
+    n = theta.shape[0]
+    px, py = stn._rotated_positions(theta, out_size, h, w)
+    xs, ys = stn._axis_taps(px, w), stn._axis_taps(py, h)
+    counts = torch.zeros(n * h * w, device=theta.device)
+    base = torch.arange(n, device=theta.device)[:, None, None] * (h * w)
+    for ty in ys:
+        for tx in xs:
+            live = (ty.hat > 0) & (tx.hat > 0)
+            index = (base + ty.index * w + tx.index)[live]
+            counts.index_add_(0, index, torch.ones_like(index, dtype=counts.dtype))
+    return int(counts.max())
+
+
+def dimages_tol(tol: dict, terms: int, largest: float) -> float:
+    """The d images tolerance of a call whose pixels sum up to ``terms``
+    products and whose largest entry is ``largest`` (see K1_BWD_TOL)."""
+    return max(tol["dimages_abs"], min(terms * 2.0**-24, tol["dimages_rel"]) * largest)
 
 
 def cuda_ms(fn, reps: int = 25) -> float:
@@ -404,7 +450,9 @@ def backward_against_plain(card: str) -> dict:
     rng = np.random.default_rng(SEED + 3)
     errs = {"bwd_theta": 0.0, "bwd_images": 0.0}
 
-    def compare(name, images, theta, out_size):
+    def compare(name, images, theta, out_size, theta_defined=True):
+        """``theta_defined`` false: an infinite or huge theta, whose d theta
+        is not compared (only d images)."""
         images, theta = on_card(images), on_card(theta)
         shape = (images.shape[0], out_size.height, out_size.width, images.shape[3])
         g = on_card(rng.normal(size=shape).astype(np.float32))
@@ -412,18 +460,26 @@ def backward_against_plain(card: str) -> dict:
         got_theta = stn.separable_sampler_bwd_theta(images, theta, g)
         again = stn.separable_sampler_bwd_theta(images, theta, g)
         got_img = stn.separable_sampler_bwd_images(theta, g, tuple(images.shape))
+        again_img = stn.separable_sampler_bwd_images(theta, g, tuple(images.shape))
         torch.cuda.synchronize()
         check(torch.equal(got_theta.view(torch.int32), again.view(torch.int32)),
               f"K1 bwd_theta {name}: two runs differ")
-        e_t, e_i = max_err(got_theta, want_theta), max_err(got_img, want_img)
+        check(torch.equal(got_img.view(torch.int32), again_img.view(torch.int32)),
+              f"K1 bwd_images {name}: two runs differ")
+        e_t = max_err(got_theta, want_theta) if theta_defined else 0.0
+        e_i = max_err(got_img, want_img)
         s_t = float(want_theta.nan_to_num().abs().max())
         s_i = float(want_img.nan_to_num().abs().max())
-        print(f"K1 bwd {name}: dtheta max_abs_err {e_t:.3e}, max_rel_err "
-              f"{e_t / max(s_t, 1e-30):.3e} (tol {K1_BWD_TOL['dtheta_rel']:g} of max |dtheta| {s_t:.4g}); "
-              f"dimages max_abs_err {e_i:.3e}, max_rel_err {e_i / max(s_i, 1e-30):.3e} "
-              f"(tol {K1_BWD_TOL['dimages_abs']:g} absolute, max |dimages| {s_i:.4g})")
+        terms = dimages_terms(theta, out_size, images.shape[1], images.shape[2], rotated=False)
+        tol_i = dimages_tol(K1_BWD_TOL, terms, s_i)
+        print(f"K1 bwd {name}: " + (f"dtheta max_abs_err {e_t:.3e}, max_rel_err {e_t / max(s_t, 1e-30):.3e} "
+                                    f"(tol {K1_BWD_TOL['dtheta_rel']:g} of max |dtheta| {s_t:.4g}); "
+                                    if theta_defined else "dtheta not compared; ")
+              + f"dimages max_abs_err {e_i:.3e}, max_rel_err {e_i / max(s_i, 1e-30):.3e} (tol {tol_i:.3g}, "
+              f"up to {terms} products a pixel, max |dimages| {s_i:.4g}, NaN in {int(torch.isnan(got_img).flatten(1).all(1).sum())} images "
+              f"throughout, as the plain version); both bit-identical between two runs")
         check(e_t <= K1_BWD_TOL["dtheta_rel"] * s_t, f"K1 bwd_theta {name}: {e_t} > tol")
-        check(e_i <= K1_BWD_TOL["dimages_abs"], f"K1 bwd_images {name}: {e_i} > tol")
+        check(e_i <= tol_i, f"K1 bwd_images {name}: {e_i} > {tol_i}")
         errs["bwd_theta"] = max(errs["bwd_theta"], e_t)
         errs["bwd_images"] = max(errs["bwd_images"], e_i)
         return images, theta, g
@@ -464,14 +520,9 @@ def backward_against_plain(card: str) -> dict:
             print(f"K1 {name} N={n}: per call (CUDA events, host launch included) kernel "
                   f"{call_ms * 1e3:.1f} us, plain {plain_ms * 1e3:.1f} us, library grid_sample backward "
                   f"{lib_ms * 1e3:.1f} us; bound {bound_ms * 1e3:.2f} us ({bound_by}) ({card})")
-            if name == "bwd_theta":
-                t.update(one_kernel_device_times("K1", "separable_sampler_bwd_theta", kernel, n, card))
-                device = t["device_ms"] * 1e3
-            else:  # the whole call: its memsets, the scatter and the NaN fill
-                device = device_us(kernel)
-                t["device_ms"] = ms(device)
+            t.update(one_kernel_device_times("K1", f"separable_sampler_{name}", kernel, n, card))
             times.setdefault(name, {})[n] = t
-            print(f"K1 {name} N={n}: device time (profiler) kernel {fmt_us(device)}, "
+            print(f"K1 {name} N={n}: device time (profiler) kernel {fmt_us(t['device_ms'] * 1e3)}, "
                   f"plain {fmt_us(device_us(plain))}, library {fmt_us(device_us(library))} ({card})")
 
     ties = rng.uniform(size=(4, 129, 129, 3)).astype(np.float32)  # p_i = i: every position a tie
@@ -485,6 +536,20 @@ def backward_against_plain(card: str) -> dict:
     nan = axis_aligned_theta(rng, 4)
     nan[1, 1, 1] = np.nan  # NaN py everywhere in image 1: its four used entries NaN
     compare("NaN theta", imgs, nan, out)
+    compare("zero scale", imgs, np.tile(np.float32(ZERO_SCALE), (4, 1, 1)), out)
+    compare("flipped scale", imgs, np.tile(np.float32(FLIP), (4, 1, 1)), out)
+    small = rng.uniform(size=(4, 64, 64, 3)).astype(np.float32)  # several outputs per input row
+    compare("upsampled 64^2->200^2", small, axis_aligned_theta(rng, 4), Size(200, 200))
+    # 800 output columns over a 64-pixel row: the g window of an output row
+    # that reaches it (2,400 floats) is wider than the kernel stages in
+    # shared memory (kDimgGRow), so the column sums read g from global memory
+    wide = np.tile(np.float32([[0.5, 0, 0.05], [0, 0.5, -0.05]]), (4, 1, 1))
+    compare("upsampled 64^2->16x800 (g window past the stage)", small, wide, Size(16, 800))
+    for what, rows, size in (("infinite theta00, w_out=65", INF_THETA, Size(CROP, 65)),
+                             ("huge theta00 1e30", HUGE_THETA, out)):
+        theta = axis_aligned_theta(rng, 4)
+        theta[1] = rows
+        compare(what, imgs, theta, size, theta_defined=False)
     return {"max_abs_err": errs, "times": times}
 
 
@@ -495,7 +560,7 @@ def rotated_bound(kernel: str, images: torch.Tensor, theta: torch.Tensor, out_si
     non-zero; hat' is non-zero only there), not a rows x columns product.
     Operations per live tap and channel: a multiply and an add in its row,
     and the row's weight (forward); hat and hat' products and their sums,
-    and g's (d theta); two products and the atomic add (d images)."""
+    and g's (d theta); two products and the add (d images)."""
     n, h, w, c = images.shape
     px, py = stn._rotated_positions(theta, out_size, h, w)
     xs, ys = stn._axis_taps(px, w), stn._axis_taps(py, h)
@@ -533,7 +598,8 @@ def rotated_against_plain(card: str) -> dict:
     rng = np.random.default_rng(SEED + 7)
     errs = {"fwd": 0.0, "bwd_theta": 0.0, "bwd_images": 0.0}
 
-    def compare(name, images, theta, out_size, ties=False):
+    def compare(name, images, theta, out_size, ties=False, theta_defined=True):
+        """``theta_defined`` as in phase 2b."""
         images, theta = on_card(images), on_card(theta)
         shape = (images.shape[0], out_size.height, out_size.width, images.shape[3])
         g = on_card(rng.normal(size=shape).astype(np.float32))
@@ -543,18 +609,28 @@ def rotated_against_plain(card: str) -> dict:
         got_theta = stn.rotated_sampler_bwd_theta(images, theta, g)
         again = stn.rotated_sampler_bwd_theta(images, theta, g)
         got_img = stn.rotated_sampler_bwd_images(theta, g, tuple(images.shape))
+        again_img = stn.rotated_sampler_bwd_images(theta, g, tuple(images.shape))
         torch.cuda.synchronize()
         check(torch.equal(got_theta.view(torch.int32), again.view(torch.int32)),
               f"K2 bwd_theta {name}: two runs differ")
-        e_f, e_t, e_i = max_err(got, want), max_err(got_theta, want_theta), max_err(got_img, want_img)
+        check(torch.equal(got_img.view(torch.int32), again_img.view(torch.int32)),
+              f"K2 bwd_images {name}: two runs differ")
+        e_f, e_i = max_err(got, want), max_err(got_img, want_img)
+        e_t = max_err(got_theta, want_theta) if theta_defined else 0.0
         s_t = float(want_theta.nan_to_num().abs().max())
+        s_i = float(want_img.nan_to_num().abs().max())
+        terms = dimages_terms(theta, out_size, images.shape[1], images.shape[2], rotated=True)
+        tol_i = dimages_tol(K2_TOL, terms, s_i)
         print(f"K2 {name}: fwd max_abs_err {e_f:.3e} (bit-identical: {bit_identical(got, want)}); "
-              f"dtheta max_abs_err {e_t:.3e}, max_rel_err {e_t / max(s_t, 1e-30):.3e} (tol "
-              f"{K2_TOL['dtheta_rel']:g} of max |dtheta| {s_t:.4g}); dimages max_abs_err {e_i:.3e} "
-              f"(tol {K2_TOL['dimages_abs']:g})")
+              + (f"dtheta max_abs_err {e_t:.3e}, max_rel_err {e_t / max(s_t, 1e-30):.3e} (tol "
+                 f"{K2_TOL['dtheta_rel']:g} of max |dtheta| {s_t:.4g}); " if theta_defined else "dtheta not compared; ")
+              + f"dimages max_abs_err {e_i:.3e} (tol {tol_i:.3g}, up to {terms} products a pixel, "
+              f"max |dimages| {s_i:.4g}, NaN in "
+              f"{int(torch.isnan(got_img).flatten(1).all(1).sum())} images throughout, as the plain version); "
+              "d theta and d images bit-identical between two runs")
         check(bit_identical(got, want), f"K2 fwd {name}: not bit-identical to the plain version (max abs err {e_f})")
         check(e_t <= K2_TOL["dtheta_rel"] * s_t, f"K2 bwd_theta {name}: {e_t} > tol")
-        check(e_i <= K2_TOL["dimages_abs"], f"K2 bwd_images {name}: {e_i} > tol")
+        check(e_i <= tol_i, f"K2 bwd_images {name}: {e_i} > {tol_i}")
         if ties:  # every position on a pixel: the dense VJP's rule moves nothing
             check(not got_theta.any() and not want_theta.any(), f"K2 {name}: d theta not exactly 0")
             print(f"K2 {name}: d theta exactly 0 in the kernel and the plain version")
@@ -605,14 +681,9 @@ def rotated_against_plain(card: str) -> dict:
             print(f"K2 {name} N={n}: per call (CUDA events, host launch included) kernel "
                   f"{call_ms * 1e3:.1f} us, plain {plain_ms * 1e3:.1f} us, library grid_sample "
                   f"{lib_ms * 1e3:.1f} us; bound {bound_ms * 1e3:.2f} us ({bound_by}) ({card})")
-            if name != "bwd_images":
-                t.update(one_kernel_device_times("K2", f"rotated_sampler_{name}", kernel, n, card))
-                device = t["device_ms"] * 1e3
-            else:  # the whole call: its memsets, the scatter and the NaN fill
-                device = device_us(kernel)
-                t["device_ms"] = ms(device)
+            t.update(one_kernel_device_times("K2", f"rotated_sampler_{name}", kernel, n, card))
             times.setdefault(name, {})[n] = t
-            print(f"K2 {name} N={n}: device time (profiler) kernel {fmt_us(device)}, "
+            print(f"K2 {name} N={n}: device time (profiler) kernel {fmt_us(t['device_ms'] * 1e3)}, "
                   f"plain {fmt_us(device_us(plain))}, library {fmt_us(device_us(library))} ({card})")
 
     ties = rng.uniform(size=(4, 129, 129, 3)).astype(np.float32)  # p = pixel: every position a tie
@@ -632,6 +703,19 @@ def rotated_against_plain(card: str) -> dict:
     compare("upsampled 64^2->200^2", small, rotated_theta(rng, 4), Size(200, 200))
     imgs = rng.uniform(size=(4, INPUT, INPUT, 4)).astype(np.float32)  # the generic-C instance
     compare("C=4", imgs, rotated_theta(rng, 4), out)
+    # singular and degenerate maps: d images takes every output as a
+    # candidate of each tile there and scans those with a tap on it
+    imgs = rng.uniform(size=(4, INPUT, INPUT, 3)).astype(np.float32)
+    compare("zero scale", imgs, np.tile(np.float32(ZERO_SCALE), (4, 1, 1)), out)
+    compare("flipped scale", imgs, np.tile(np.float32(FLIP), (4, 1, 1)), out)
+    compare("rank-1 theta", imgs, np.tile(np.float32([[0.6, 0.3, 0.1], [0.4, 0.2, -0.1]]), (4, 1, 1)), out)
+    compare("near-singular theta", imgs, np.tile(np.float32([[0.6, 0.3, 0.1], [0.4, 0.2001, -0.1]]), (4, 1, 1)),
+            out)
+    for what, rows, size in (("infinite theta00, w_out=65", INF_THETA, Size(CROP, 65)),
+                             ("huge theta00 1e30", HUGE_THETA, out)):
+        theta = rotated_theta(rng, 4)
+        theta[1] = rows
+        compare(what, imgs, theta, size, theta_defined=False)
     return {"max_abs_err": errs, "times": times}
 
 

@@ -1,7 +1,7 @@
 """Sampler comparison on the card (port of ``tools/bench_samplers.py``).
 
     python -m loans_tpu_torch.cli.bench_samplers [--step] [--fwd] [--dtheta]
-        [--batch 128] [--rotation-ratio 0.5] [--device cuda]
+        [--dimages] [--batch 128] [--rotation-ratio 0.5] [--device cuda]
 
 Prints the card's name and power limit (``nvidia-smi``) first. Then, at
 the JAX tool's operating point (batch 64, 224x224 -> 75x75, float32, TF32
@@ -22,20 +22,25 @@ per call, 2 warm-up calls, 5 timed calls, reported as ms/iter and images/s.
 
 ``--fwd`` times only the two forward kernels (``sample_separable_kernel``,
 ``sample_rotated_kernel``), ``--dtheta`` only the two d theta kernels
-(``separable_sampler_bwd_theta``, ``rotated_sampler_bwd_theta``), each at
+(``separable_sampler_bwd_theta``, ``rotated_sampler_bwd_theta``),
+``--dimages`` only the two d images kernels (``separable_sampler_bwd_images``,
+``rotated_sampler_bwd_images``), each at
 N = 32, 64 and 128, 224x224 -> 75x75, with the theta above: the device
-time per launch from a ``torch.profiler`` trace (each call is one launch;
-the trace may drop events at its edges), L2-warm (calls back to back, the
+time per launch and per call from a ``torch.profiler`` trace (a call of
+this tree is one launch, timed best per launch, as the trace may drop
+events at its edges; another checkout's may be several), L2-warm (calls back to back, the
 inputs left in the 50 MB L2) and L2-cold (``FLUSH_BYTES`` copied between
 two buffers before each call, that copy left out), and the device
-operations per call. Both flags may be given. They time whichever
+operations per call. ``--dimages`` then times both d images kernels
+L2-warm at N = 64 over ``DIMAGES_THETAS`` (small, sheared, zero and
+per-image random scales). The flags may be combined. They time whichever
 ``loans_tpu_torch`` Python imports, so another checkout's kernels are
 timed by running this file by path with that checkout first on
 ``PYTHONPATH`` (then this checkout, then that one again, in one run on one
 card):
 
-    PYTHONPATH=<other checkout> python loans_tpu_torch/cli/bench_samplers.py --fwd --dtheta
-    python -m loans_tpu_torch.cli.bench_samplers --fwd --dtheta
+    PYTHONPATH=<other checkout> python loans_tpu_torch/cli/bench_samplers.py --dimages
+    python -m loans_tpu_torch.cli.bench_samplers --dimages
 
 The JAX tool's scan-and-readback harness and its matmul calibration guard
 against a device whose blocking call could return before the work ended;
@@ -72,7 +77,18 @@ PLAIN = ("separable", "rotated")  # backward on CPU tensors only
 AXIS_ALIGNED_THETA = ((0.7, 0.0, 0.1), (0.0, 0.6, -0.1))
 ROTATED_THETA = ((0.7, 0.15, 0.1), (-0.12, 0.6, -0.1))
 STEPS_PER_CALL, WARMUP_CALLS, TIMED_CALLS = 10, 2, 5
-KERNEL_BATCHES = (32, 64, 128)  # --fwd and --dtheta
+KERNEL_BATCHES = (32, 64, 128)  # --fwd, --dtheta and --dimages
+# --dimages also times both d images kernels at N = 64 over these thetas
+# (K1 reads only the scales and shifts): scales 0.3 to 0.7, with and without
+# the shear of ROTATED_THETA, a zero scale (every output on one pixel), and
+# a seeded per-image draw of scales in [0.3, 1.1], off-diagonals in
+# [-0.3, 0.3] and shifts in [-0.4, 0.4], as chip_smoke.py's phase 7 draws
+DIMAGES_THETAS = {
+    **{f"scale {s}": ((s, 0.0, 0.1), (0.0, s, -0.1)) for s in (0.3, 0.5, 0.7)},
+    **{f"scale {s} sheared": ((s, 0.15, 0.1), (-0.12, s, -0.1)) for s in (0.3, 0.5, 0.7)},
+    "zero scale": ((0.0, 0.0, -0.21), (0.0, 0.0, 0.13)),
+    "random per image": None,
+}
 FLUSH_BYTES = 256 * 2**20  # copied before each L2-cold call: 5x the H100's 50 MB L2
 
 
@@ -192,14 +208,24 @@ def bench_standalone(device: torch.device) -> None:
     print(f"{'library grid_sample forward+backward':48s} {ms:8.3f} ms", flush=True)
 
 
+def _random_theta(g: np.random.Generator, n: int, device) -> torch.Tensor:
+    theta = np.zeros((n, 2, 3), np.float32)
+    theta[:, 0, 0], theta[:, 1, 1] = g.uniform(0.3, 1.1, n), g.uniform(0.3, 1.1, n)
+    theta[:, 0, 2], theta[:, 1, 2] = g.uniform(-0.4, 0.4, n), g.uniform(-0.4, 0.4, n)
+    theta[:, 0, 1], theta[:, 1, 0] = g.uniform(-0.3, 0.3, n), g.uniform(-0.3, 0.3, n)
+    return torch.from_numpy(theta).to(device)
+
+
 def bench_kernels(kind: str, device: torch.device, card: str) -> None:
     """Device time per launch of K1's and K2's ``kind`` kernel (``fwd``:
-    the forwards, ``dtheta``: the d theta kernels), L2-warm and L2-cold,
-    and its device operations per call."""
+    the forwards, ``dtheta``: the d theta kernels, ``dimages``: the d
+    images kernels), L2-warm and L2-cold, and its device operations per
+    call; for ``dimages`` also L2-warm over ``DIMAGES_THETAS`` at N = 64."""
     print(f"{kind}: loans_tpu_torch from {loans_tpu_torch.__path__[0]}", flush=True)
     kernels = {
         "fwd": (stn.sample_separable_kernel, stn.sample_rotated_kernel),
         "dtheta": (stn.separable_sampler_bwd_theta, stn.rotated_sampler_bwd_theta),
+        "dimages": (stn.separable_sampler_bwd_images, stn.rotated_sampler_bwd_images),
     }[kind]
     g = np.random.default_rng(0)
     for n in KERNEL_BATCHES:
@@ -207,11 +233,26 @@ def bench_kernels(kind: str, device: torch.device, card: str) -> None:
         cot = torch.from_numpy(g.normal(size=(n, CROP.height, CROP.width, 3)).astype(np.float32)).to(device)
         for fn, rows in zip(kernels, (AXIS_ALIGNED_THETA, ROTATED_THETA)):
             theta = _theta(rows, device, n)
-            call = functools.partial(fn, images, theta, CROP if kind == "fwd" else cot)
+            if kind == "dimages":
+                call = functools.partial(fn, theta, cot, tuple(images.shape))
+            else:
+                call = functools.partial(fn, images, theta, CROP if kind == "fwd" else cot)
             warm, cold = device_time(call), device_time(call, cold=True)
             print(f"{kind} {fn.__name__} N={n}: device {fmt_us(warm.per_launch_us)} warm, "
-                  f"{fmt_us(cold.per_launch_us)} cold, {warm.ops_per_call:g} device operations per call "
+                  f"{fmt_us(cold.per_launch_us)} cold per launch; {fmt_us(warm.per_call_us)} warm, "
+                  f"{fmt_us(cold.per_call_us)} cold per call, {warm.ops_per_call:g} device operations per call "
                   f"({card})", flush=True)
+    if kind != "dimages":
+        return
+    cot = torch.from_numpy(g.normal(size=(BATCH, CROP.height, CROP.width, 3)).astype(np.float32)).to(device)
+    shape = (BATCH, IMG.height, IMG.width, 3)
+    for what, rows in DIMAGES_THETAS.items():
+        theta = _random_theta(np.random.default_rng(7), BATCH, device) if rows is None else _theta(rows, device)
+        times = []
+        for fn in kernels:
+            warm = device_time(functools.partial(fn, theta, cot, shape))
+            times.append(f"{fn.__name__} {fmt_us(warm.per_launch_us)} per launch, {fmt_us(warm.per_call_us)} per call")
+        print(f"dimages N={BATCH} {what}: device warm {'; '.join(times)} ({card})", flush=True)
 
 
 def bench_step(device: torch.device, batch: int, rotation_ratio: float) -> None:
@@ -257,6 +298,7 @@ def get_parser() -> argparse.ArgumentParser:
     p.add_argument("--step", action="store_true", help="also time the full alternating step per sampler")
     p.add_argument("--dtheta", action="store_true", help="time only the two d theta kernels, warm and cold")
     p.add_argument("--fwd", action="store_true", help="time only the two forward kernels, warm and cold")
+    p.add_argument("--dimages", action="store_true", help="time only the two d images kernels, warm and cold")
     p.add_argument("--batch", type=int, default=128, help="batch of the --step runs")
     p.add_argument("--rotation-ratio", type=float, default=0.5)
     p.add_argument("--device", default="cuda", help="a CUDA device (default: cuda)")
@@ -273,8 +315,8 @@ def main(argv=None) -> None:
     print(card, flush=True)
     print(f"device {torch.cuda.get_device_name(device)}, torch {torch.__version__}, CUDA {torch.version.cuda}",
           flush=True)
-    if args.fwd or args.dtheta:
-        for kind in ("fwd", "dtheta"):
+    if args.fwd or args.dtheta or args.dimages:
+        for kind in ("fwd", "dtheta", "dimages"):
             if getattr(args, kind):
                 bench_kernels(kind, device, card)
         return

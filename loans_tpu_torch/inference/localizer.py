@@ -18,6 +18,7 @@ this is the one place the port sets them.
 from __future__ import annotations
 
 import os
+import warnings
 
 import numpy as np
 import torch
@@ -58,7 +59,11 @@ class LocalizerInference:
         self.use_assessor = use_assessor and "assessor" in self.manifest
         self.assessor = None
         if self.use_assessor:
-            self.assessor = build_assessor(self.manifest["assessor"], self.localizer)
+            # seeded apart from the global stream: these are the parameters
+            # served where the log dir holds no assessor snapshot
+            with torch.random.fork_rng(devices=[]):
+                torch.manual_seed(0)
+                self.assessor = build_assessor(self.manifest["assessor"], self.localizer)
         self._load_weights(snapshot)
 
     # -- weights ----------------------------------------------------------
@@ -69,6 +74,18 @@ class LocalizerInference:
         return snaps[-1][1]
 
     def _load_weights(self, snapshot: str | None) -> None:
+        """Restore the localizer from ``snapshot`` (default: the latest
+        ``<Localizer>_*.pt``; none raises) and the assessor from its latest
+        snapshot.
+
+        A log dir with no assessor snapshot is served as the JAX package
+        serves it: with the assessor's initial parameters, which ``__init__``
+        drew from seed 0 (``torch.manual_seed(0)`` inside
+        ``torch.random.fork_rng``, so the global stream is left as it was),
+        and a warning. Those parameters are not flax's (``key(0)`` through
+        flax's initialisers), so the scores, and the frames they gate,
+        differ from the JAX package's; the boxes do not.
+        """
         names = self.manifest.get("snapshot_names", ["Localizer", "ResnetAssessor"])
         if snapshot is None:
             snapshot = self._latest(names[0])
@@ -76,11 +93,18 @@ class LocalizerInference:
             snapshot = os.path.join(self.log_dir, snapshot)
         self.localizer.load_state_dict(checkpoint.load_params(snapshot))
         self.localizer.to(self.device).eval()
-        if self.assessor is not None:
-            self.assessor.load_state_dict(
-                checkpoint.load_params(self._latest(names[-1]))
+        if self.assessor is None:
+            return
+        snaps = checkpoint.list_snapshots(self.log_dir, names[-1] + "_")
+        if snaps:
+            self.assessor.load_state_dict(checkpoint.load_params(snaps[-1][1]))
+        else:
+            warnings.warn(
+                f"no {names[-1]}_*.pt snapshots in {self.log_dir}: serving the "
+                "assessor's initial parameters (seed 0)",
+                stacklevel=3,
             )
-            self.assessor.to(self.device).eval()
+        self.assessor.to(self.device).eval()
 
     # -- forward ----------------------------------------------------------
     @torch.inference_mode()

@@ -35,12 +35,12 @@ SIGNATURES = {
     "separable_sampler": {
         "separable_sampler_fwd": ([_P, _P, _P] + [_I] * 7 + [_P], _I),
         "separable_sampler_bwd_theta": ([_P] * 4 + [_I] * 7 + [_P], _I),
-        "separable_sampler_bwd_images": ([_P] * 4 + [_I] * 7 + [_P], _I),
+        "separable_sampler_bwd_images": ([_P] * 3 + [_I] * 7 + [_P], _I),
     },
     "rotated_sampler": {
         "rotated_sampler_fwd": ([_P, _P, _P] + [_I] * 7 + [_P], _I),
         "rotated_sampler_bwd_theta": ([_P] * 4 + [_I] * 7 + [_P], _I),
-        "rotated_sampler_bwd_images": ([_P] * 4 + [_I] * 7 + [_P], _I),
+        "rotated_sampler_bwd_images": ([_P] * 3 + [_I] * 7 + [_P], _I),
     },
 }
 _COMMON = {"loans_cuda_error_string": ([_I], ctypes.c_char_p)}

@@ -83,13 +83,52 @@
 //   dense product gives: gpx is NaN where py is NaN (0 where only px is),
 //   gpy where px is.
 //
-// Backward, d images (rotated_sampler_bwd_images): each output element
-// adds (hat_y * g) * hat_x to its <= 4 taps with float atomics after the
-// buffer is zeroed, so the order of the sums changes from run to run.
-// What bounds it: writing the whole (N, H, W, C) gradient (38.5 MB at
-// N = 64), bytes. A NaN position fills that image's gradient with NaN, as
-// the dense product would. Not launched on the training path, whose images
-// need no gradient.
+// Backward, d images (rotated_sampler_bwd_images):
+//   d img[y, x] = sum_{i,j} hat(py_ij - y) * hat(px_ij - x) * g[i, j].
+// What bounds it: bytes, writing all of d images (38.5 MB at N = 64,
+// 224^2x3) and reading g (4.3 MB), about 12.8 us of HBM time. A scatter
+// from the outputs needs the gradient zeroed first and float atomics, whose
+// order of sums changes from run to run, and a second pass for NaN: four
+// device operations. The design is a gather, one launch, each element of d
+// images summed in registers and written once:
+// - One CTA of kDimgThreads threads per tile of kDimgTileY x kDimgTileX
+//   input pixels of one image (3,136 CTAs at N = 64, four resident on an
+//   SM), a block of 2 x 2 pixels a thread.
+// - Reach from the inverse map. Output (j, i) samples the exact position
+//   M (j, i) + b, M the 2 x 2 linear part of theta times the steps and half
+//   sizes; a pixel (x, y) is reached only by outputs inside the open square
+//   (x +- 1, y +- 1), whose preimage is a parallelogram in (j, i). The
+//   bounding box of the tile's, in double, widened by the float32
+//   positions' rounding (ex, ey pixels) and by kReachMargin indices and
+//   clamped to the output, holds every output with a tap on the tile
+//   (inverse_map, reach_box). A singular or non-finite map (scale 0, a
+//   rank-1 theta) takes the whole output as its box.
+// - The box's outputs are staged in shared memory, kDimgChunk at a time:
+//   their float32 positions by sample_pos (the plain version's operations
+//   in its order) and their C values of g, loaded together. Each is filed
+//   in a grid of cells by (floor(px), floor(py)); a pixel's live outputs
+//   (|px - x| < 1 and |py - y| < 1, exactly where the plain version's
+//   _axis_taps puts a non-zero hat on it) lie in its 4 cells (x - 1 or x,
+//   y - 1 or y), which it reads in a fixed order, adding
+//   (hat_y * g) * hat_x. No two outputs share a cell where the map keeps
+//   them a pixel apart (cell_stride: a lattice check on M, stride 1 at
+//   224^2 -> 75^2 at scales above about 0.34); where it does not (a small,
+//   sheared or upsampled crop), rounds take one class of outputs (box row
+//   and column mod a power of two) at a time, each round a clear of the
+//   cells and three barriers: 4 rounds at scale 0.3. Where each class
+//   would hold one output (a singular or near-singular map, which takes
+//   the whole output as its box, or a box smaller than the stride), the
+//   CTA lists the chunk's live outputs, those with a tap on the tile, in a
+//   fixed order, and every thread tests each against its pixels: two
+//   barriers a chunk, and a tile no output reaches costs only the staging.
+//   No atomics, no scratch, a fixed order: bit-identical between runs. A
+//   pixel no output reaches is a zero.
+// - NaN inside the launch: if all six theta entries are finite and at most
+//   2^96, no position can be NaN (|u|, |v| <= 1 and (W - 1) / 2 < 2^27
+//   keep every sum and product under float32's overflow at 2^128); any
+//   other theta has the CTA scan its image's positions (__syncthreads_or).
+//   An image with a NaN position gets NaN throughout, as the dense product.
+// Not launched on the training path, whose images need no gradient.
 
 #include "sampler_common.cuh"
 
@@ -345,39 +384,318 @@ __global__ void __launch_bounds__(kDthetaThreads, 2) rotated_sampler_bwd_theta_k
   if (rank == 0 && tid < kSums) d_theta[n * kSums + tid] = sum;
 }
 
-// One thread per output element (n, i, j, c), as the forward: adds
-// (hat_y * g) * hat_x to the <= 4 taps of d images (zeroed before). A NaN
-// position marks its image in nan_flags instead.
-__global__ void rotated_sampler_bwd_images_kernel(
-    const float* __restrict__ theta, const float* __restrict__ g,
-    float* __restrict__ d_images, int* __restrict__ nan_flags, int h, int w,
-    int c, int h_out, int w_out, float step_y, float step_x, int64_t total) {
-  const int64_t idx = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= total) return;
-  const int ch = (int)(idx % c);
-  int64_t rest = idx / c;
-  const int j = (int)(rest % w_out);
-  rest /= w_out;
-  const int i = (int)(rest % h_out);
-  const int64_t n = rest / h_out;
+// d images: a CTA takes a tile of kDimgTileY x kDimgTileX input pixels of
+// one image; each of its kDimgThreads threads sums a block of 2 x 2 of
+// them in registers. Candidate outputs are staged in shared memory
+// kDimgChunk at a time (up to 4 a thread), with a grid of cells, one per
+// floor(px), floor(py) that can tap the tile.
+constexpr int kDimgTileX = 32, kDimgTileY = 32;
+constexpr int kDimgThreads = kDimgTileX * kDimgTileY / 4;
+constexpr int kDimgChunk = 4 * kDimgThreads;
+constexpr int kCellsX = kDimgTileX + 1, kCellsY = kDimgTileY + 1;
+// Indices added on each side of a reach box, beyond the rounding bound.
+constexpr double kReachMargin = 1.0;
 
-  const Pos p = positions(theta + n * 6, i, j, step_y, step_x,
-                          0.5f * (float)(h - 1), 0.5f * (float)(w - 1));
-  if (isnan(p.px) || isnan(p.py)) {
-    nan_flags[n] = 1;
+// The map from output index (j, i) to its exact position:
+//   (px, py) = M (j, i) + b, u_j = -1 + step_x * j, v_i = -1 + step_y * i,
+// inverted: (j, i) = inv ((px, py) - b). ex, ey bound |float32 position -
+// exact position| in pixels: u and v are off by at most 2^-22, and the five
+// float32 operations of sample_pos each by 2^-24 of a partial sum at most
+// S = |t0| + |t1| + |t2| + 1, so the error is under half * S * 2^-20;
+// ex and ey take 2^-18. ok is false where M is singular or any of these is
+// not finite: then every output is a candidate.
+struct InverseMap {
+  double fwd[2][2];
+  double inv[2][2];
+  double b[2];
+  double ex, ey;
+  bool ok;
+};
+
+__device__ InverseMap inverse_map(const float (&t)[6], float step_y,
+                                  float step_x, double half_y, double half_x) {
+  InverseMap m;
+  const double a = half_x * t[0] * step_x, bb = half_x * t[1] * step_y;
+  const double c = half_y * t[3] * step_x, d = half_y * t[4] * step_y;
+  m.fwd[0][0] = a;
+  m.fwd[0][1] = bb;
+  m.fwd[1][0] = c;
+  m.fwd[1][1] = d;
+  m.b[0] = half_x * ((double)t[2] + 1.0 - t[0] - t[1]);
+  m.b[1] = half_y * ((double)t[5] + 1.0 - t[3] - t[4]);
+  const double det = a * d - bb * c;
+  const double r = 1.0 / det;
+  m.inv[0][0] = d * r;
+  m.inv[0][1] = -bb * r;
+  m.inv[1][0] = -c * r;
+  m.inv[1][1] = a * r;
+  constexpr double kRounding = 1.0 / (1 << 18);
+  m.ex = kRounding * half_x * (fabs(t[0]) + fabs(t[1]) + fabs(t[2]) + 1.0);
+  m.ey = kRounding * half_y * (fabs(t[3]) + fabs(t[4]) + fabs(t[5]) + 1.0);
+  m.ok = det != 0.0 && isfinite(m.b[0]) && isfinite(m.b[1]) && isfinite(m.ex) && isfinite(m.ey);
+  for (int row = 0; row < 2; ++row) {
+    for (int k = 0; k < 2; ++k) m.ok = m.ok && isfinite(m.inv[row][k]);
+  }
+  return m;
+}
+
+// The indices [lo, hi] along output axis `axis` (0: j, 1: i) of every
+// output whose exact position lies within (ax, ay) pixels of (px, py) =
+// (dx, dy) + b, widened by kReachMargin and clamped to [0, out - 1] (empty
+// when lo > hi).
+__device__ __forceinline__ int2 reach_box(const InverseMap& m, int axis, double dx,
+                                          double dy, double ax, double ay, int out) {
+  const double center = m.inv[axis][0] * dx + m.inv[axis][1] * dy;
+  const double radius = fabs(m.inv[axis][0]) * ax + fabs(m.inv[axis][1]) * ay + kReachMargin;
+  const double lo = fmin(fmax(ceil(center - radius), 0.0), (double)out);
+  const double hi = fmax(fmin(floor(center + radius), out - 1.0), -1.0);
+  return make_int2((int)lo, (int)hi);
+}
+
+// The least power of two s such that any two distinct outputs whose index
+// differences (dj, di) are multiples of s have exact positions at least
+// 1 + 2 max(ex, ey) pixels apart along an axis: their float32 positions are
+// then 1 or more apart, and their floors differ, so no two share a cell.
+// With w = (dj, di) / s: for ||w||_inf >= 3 the distance is at least
+// 3 s / ||inv||_inf (as ||w||_inf <= ||inv||_inf ||M w||_inf); the vectors
+// with ||w||_inf <= 2 are checked one by one, one lane of the calling warp
+// each (wi = lane / 5, wj = lane % 5 - 2 for the first 15 lanes; one of
+// each pair +-w). 2^30 where the map is not ok. Every lane of the warp
+// calls it with the same map.
+__device__ int cell_stride(const InverseMap& m, int lane) {
+  const double need = 1.0 + 2.0 * fmax(m.ex, m.ey);
+  const double norm = fmax(fabs(m.inv[0][0]) + fabs(m.inv[0][1]),
+                           fabs(m.inv[1][0]) + fabs(m.inv[1][1]));
+  const int wi = lane / 5, wj = lane % 5 - 2;
+  const bool checks = lane < 15 && !(wi == 0 && wj <= 0);
+  for (int s = 1; m.ok && s < (1 << 30); s <<= 1) {
+    if (!(3.0 * s >= need * norm)) continue;
+    const double dx = s * (m.fwd[0][0] * wj + m.fwd[0][1] * wi);
+    const double dy = s * (m.fwd[1][0] * wj + m.fwd[1][1] * wi);
+    if (__all_sync(0xffffffffu, !checks || fmax(fabs(dx), fabs(dy)) >= need)) return s;
+  }
+  return 1 << 30;
+}
+
+// The least power of two at or above k >= 1.
+__device__ __forceinline__ int pow2_at_least(int k) {
+  return k <= 1 ? 1 : 1 << (32 - __clz(k - 1));
+}
+
+// What a d images CTA derives from theta once: the tile's box of candidate
+// outputs and the class strides of its rounds (powers of two).
+struct TilePlan {
+  int2 bj, bi;
+  int si, sj;
+  bool scan;  // si >= box rows and sj >= box columns: a class per output
+};
+
+// Grid n * tiles, tiles = tiles_x * ceil(h / kDimgTileY); CTA k of image n
+// takes the tile (k / tiles_x, k % tiles_x). kC is the channel count, whose
+// sums a thread keeps together; 0 takes any C, one channel at a time (the
+// candidates staged again for each).
+template <int kC>
+__global__ void __launch_bounds__(kDimgThreads, 4) rotated_sampler_bwd_images_kernel(
+    const float* __restrict__ theta, const float* __restrict__ g,
+    float* __restrict__ d_images, int h, int w, int c, int h_out, int w_out,
+    float step_y, float step_x, int tiles_x, int tiles) {
+  constexpr int kLoaded = kC > 0 ? kC : 1;  // channels summed together
+  constexpr int kHeld = kDimgChunk / kDimgThreads;  // candidates a thread stages
+  const int channels = kC > 0 ? kC : c;
+  __shared__ TilePlan plan;
+  static_assert(kCellsY * kCellsX >= kDimgChunk, "a scan lists a chunk in the cells");
+  __shared__ int cells[kCellsY * kCellsX];  // a staged candidate, or -1; a scan's list
+  __shared__ int counts[kHeld * (kDimgThreads / 32)];  // a scan: live candidates a warp
+  __shared__ float2 cand_pos[kDimgChunk];
+  __shared__ float cand_g[kDimgChunk * kLoaded];
+  const int tid = threadIdx.x;
+  const int n = (int)(blockIdx.x / (unsigned)tiles);
+  const int tile = (int)blockIdx.x - n * tiles;
+  const int tile_row = tile / tiles_x;
+  const int x0 = (tile - tile_row * tiles_x) * kDimgTileX, y0 = tile_row * kDimgTileY;
+  const int x_last = min(x0 + kDimgTileX, w) - 1, y_last = min(y0 + kDimgTileY, h) - 1;
+  // the thread's block of pixels: columns lx, lx + 1 and rows ly, ly + 1 of the tile
+  const int lx = 2 * (tid % (kDimgTileX / 2)), ly = 2 * (tid / (kDimgTileX / 2));
+  const float half_y = 0.5f * (float)(h - 1), half_x = 0.5f * (float)(w - 1);
+  float t[6];
+  bool tame = true;  // no position can be NaN
+  for (int k = 0; k < 6; ++k) {
+    t[k] = __ldg(theta + (int64_t)n * 6 + k);
+    tame = tame && fabsf(t[k]) <= 0x1p96f;  // false for NaN and inf too
+  }
+  if (tid < 32) {  // warp 0 plans; the tile's box: its pixels' centres +- (half the tile + 1 + rounding)
+    const InverseMap m = inverse_map(t, step_y, step_x, half_y, half_x);
+    const int stride = cell_stride(m, tid);
+    TilePlan p;
+    p.bj = make_int2(0, w_out - 1);
+    p.bi = make_int2(0, h_out - 1);
+    if (m.ok) {
+      const double dx = 0.5 * (x0 + x_last) - m.b[0], dy = 0.5 * (y0 + y_last) - m.b[1];
+      const double ax = 0.5 * (x_last - x0) + 1.0 + m.ex, ay = 0.5 * (y_last - y0) + 1.0 + m.ey;
+      p.bj = reach_box(m, 0, dx, dy, ax, ay, w_out);
+      p.bi = reach_box(m, 1, dx, dy, ax, ay, h_out);
+    }
+    const int bw = max(1, p.bj.y - p.bj.x + 1), bh = max(1, p.bi.y - p.bi.x + 1);
+    p.scan = stride >= bh && stride >= bw;
+    p.si = min(stride, pow2_at_least(bh));
+    p.sj = min(stride, pow2_at_least(bw));
+    if (tid == 0) plan = p;
+  }
+  bool nan = false;
+  if (!tame) {
+    for (int e = tid; e < h_out * w_out; e += kDimgThreads) {
+      const int i = e / w_out, j = e - i * w_out;
+      const float u = out_pos(j, step_x), v = out_pos(i, step_y);
+      nan |= isnan(sample_pos(t[0], t[1], t[2], u, v, half_x)) ||
+             isnan(sample_pos(t[3], t[4], t[5], u, v, half_y));
+    }
+  }
+  float* dst = d_images + (((int64_t)n * h + y0 + ly) * w + x0 + lx) * channels;
+  const int row_step = w * channels;
+  // whether pixel (ly + a, lx + b) of the block lies in the image
+  const bool inside[2][2] = {{y0 + ly <= y_last && x0 + lx <= x_last, y0 + ly <= y_last && x0 + lx + 1 <= x_last},
+                             {y0 + ly + 1 <= y_last && x0 + lx <= x_last, y0 + ly + 1 <= y_last && x0 + lx + 1 <= x_last}};
+  if (__syncthreads_or(nan)) {  // a NaN hat poisons the whole dense product
+    for (int a = 0; a < 2; ++a) {
+      for (int b = 0; b < 2; ++b) {
+        if (!inside[a][b]) continue;
+        for (int ch = 0; ch < channels; ++ch) dst[a * row_step + b * channels + ch] = __int_as_float(0x7fc00000);
+      }
+    }
     return;
   }
-  const Taps tx = axis_taps(p.px, w);
-  const Taps ty = axis_taps(p.py, h);
-  const float gv = __ldg(g + idx);
-  float* dimg = d_images + n * (int64_t)h * w * c + ch;
-  for (int ky = 0; ky < 2; ++ky) {
-    const float a = ty.w[ky] * gv;
-    if (a == 0.0f) continue;
-    for (int kx = 0; kx < 2; ++kx) {
-      if (tx.w[kx] == 0.0f) continue;
-      atomicAdd(dimg + ((int64_t)ty.idx[ky] * w + tx.idx[kx]) * c,
-                a * tx.w[kx]);
+
+  const TilePlan p = plan;  // written before __syncthreads_or
+  const int2 bj = p.bj, bi = p.bi;
+  const int bw = max(0, bj.y - bj.x + 1), bh = max(0, bi.y - bi.x + 1);
+  const int box = bw * bh;  // < h_out * w_out
+  const int sj_bits = __ffs(p.sj) - 1;
+  const float* gn = g + (int64_t)n * h_out * w_out * channels;
+  for (int ch0 = 0; ch0 < channels; ch0 += kLoaded) {
+    float acc[2][2][kLoaded];
+#pragma unroll
+    for (int a = 0; a < 2; ++a) {
+#pragma unroll
+      for (int b = 0; b < 2; ++b) {
+#pragma unroll
+        for (int cc = 0; cc < kLoaded; ++cc) acc[a][b][cc] = 0.0f;
+      }
+    }
+    // adds staged candidate k's products to the block's pixels it reaches
+    auto gather = [&](int k) {
+      const float2 pos = cand_pos[k];
+      float gk[kLoaded];
+#pragma unroll
+      for (int cc = 0; cc < kLoaded; ++cc) gk[cc] = cand_g[k * kLoaded + cc];
+#pragma unroll
+      for (int a = 0; a < 2; ++a) {
+        const float dy = __fsub_rn(pos.y, (float)(y0 + ly + a));
+        if (!(fabsf(dy) < 1.0f)) continue;  // a zero hat
+        const float wy = hat(dy);
+#pragma unroll
+        for (int b = 0; b < 2; ++b) {
+          const float dx = __fsub_rn(pos.x, (float)(x0 + lx + b));
+          if (!(fabsf(dx) < 1.0f)) continue;
+          const float wx = hat(dx);
+#pragma unroll
+          for (int cc = 0; cc < kLoaded; ++cc) {
+            acc[a][b][cc] = __fadd_rn(acc[a][b][cc], __fmul_rn(__fmul_rn(wy, gk[cc]), wx));
+          }
+        }
+      }
+    };
+    for (int c0 = 0; c0 < box; c0 += kDimgChunk) {
+      const int len = min(kDimgChunk, box - c0);
+      __syncthreads();  // every thread is done with the last chunk
+      // stage this thread's candidates, entries c0 + tid + q * kDimgThreads,
+      // box row and column stepped without a division; keep their cells
+      // and classes
+      int cell[kHeld], cls[kHeld];
+      const int drow = kDimgThreads / bw, dcol = kDimgThreads - drow * bw;
+      int row = (c0 + tid) / bw, col = c0 + tid - row * bw;
+#pragma unroll
+      for (int q = 0; q < kHeld; ++q) {
+        const int k = tid + q * kDimgThreads;
+        cell[q] = -1;
+        cls[q] = -1;
+        if (k < len) {
+          const int i = bi.x + row, j = bj.x + col;
+          const float u = out_pos(j, step_x), v = out_pos(i, step_y);
+          const float px = sample_pos(t[0], t[1], t[2], u, v, half_x);
+          const float py = sample_pos(t[3], t[4], t[5], u, v, half_y);
+          cand_pos[k] = make_float2(px, py);
+          const float* gp = gn + (i * w_out + j) * channels + ch0;
+#pragma unroll
+          for (int cc = 0; cc < kLoaded; ++cc) cand_g[k * kLoaded + cc] = __ldg(gp + cc);
+          const float fx = floorf(px), fy = floorf(py);
+          if (fx >= (float)(x0 - 1) && fx <= (float)x_last && fy >= (float)(y0 - 1) &&
+              fy <= (float)y_last) {  // a tap on the tile
+            cell[q] = ((int)fy - y0 + 1) * kCellsX + ((int)fx - x0 + 1);
+            cls[q] = ((row & (p.si - 1)) << sj_bits) | (col & (p.sj - 1));
+          }
+        }
+        row += drow;
+        col += dcol;
+        if (col >= bw) {
+          col -= bw;
+          ++row;
+        }
+      }
+      if (p.scan) {
+        // the chunk's live candidates listed in the order (q, warp, lane),
+        // then every thread tests each of them against its block
+#pragma unroll
+        for (int q = 0; q < kHeld; ++q) {
+          const unsigned live = __ballot_sync(0xffffffffu, cell[q] >= 0);
+          if ((tid & 31) == 0) counts[q * (kDimgThreads / 32) + (tid >> 5)] = __popc(live);
+        }
+        __syncthreads();
+        int total = 0;
+#pragma unroll
+        for (int q = 0; q < kHeld; ++q) {
+          const unsigned live = __ballot_sync(0xffffffffu, cell[q] >= 0);
+          int at = total + __popc(live & ((1u << (tid & 31)) - 1u));
+          for (int wv = 0; wv < kDimgThreads / 32; ++wv) {
+            const int count = counts[q * (kDimgThreads / 32) + wv];
+            at += wv < (tid >> 5) ? count : 0;
+            total += count;
+          }
+          if (cell[q] >= 0) cells[at] = tid + q * kDimgThreads;
+        }
+        __syncthreads();
+        for (int e = 0; e < total; ++e) gather(cells[e]);
+        continue;
+      }
+      for (int r = 0; r < p.si * p.sj; ++r) {
+        if (r > 0) __syncthreads();  // the last round's gathers are done
+        for (int e = tid; e < kCellsY * kCellsX; e += kDimgThreads) cells[e] = -1;
+        __syncthreads();
+#pragma unroll
+        for (int q = 0; q < kHeld; ++q) {
+          if (cls[q] == r) cells[cell[q]] = tid + q * kDimgThreads;
+        }
+        __syncthreads();
+        // a pixel (x, y) gathers the candidates whose floors are (x - 1 or
+        // x, y - 1 or y): the block's 3 x 3 cells, rows then columns, give
+        // each of its pixels its 4 cells in that order
+#pragma unroll
+        for (int cy = 0; cy < 3; ++cy) {
+#pragma unroll
+          for (int cx = 0; cx < 3; ++cx) {
+            const int k = cells[(ly + cy) * kCellsX + lx + cx];
+            if (k >= 0) gather(k);
+          }
+        }
+      }
+    }
+#pragma unroll
+    for (int a = 0; a < 2; ++a) {
+#pragma unroll
+      for (int b = 0; b < 2; ++b) {
+        if (!inside[a][b]) continue;
+#pragma unroll
+        for (int cc = 0; cc < kLoaded; ++cc) dst[a * row_step + b * channels + ch0 + cc] = acc[a][b][cc];
+      }
     }
   }
 }
@@ -432,34 +750,22 @@ extern "C" int rotated_sampler_bwd_theta(const float* images,
 }
 
 // d images (n, h, w, c) from theta (n, 2, 3) and the crop's cotangent g
-// (n, h_out, w_out, c); nan_flags is scratch of n ints. All contiguous, on
-// card `device`. A memset, the scatter, a second memset-sized pass only for
-// images with a NaN position; returns the first CUDA error (0 on success).
+// (n, h_out, w_out, c), h_out and w_out at least 1. All float32,
+// contiguous, on card `device`; offsets inside an image in 32 bits. One
+// launch on `stream` that writes every element; returns its CUDA error (0
+// on success).
 extern "C" int rotated_sampler_bwd_images(const float* theta, const float* g,
-                                          float* d_images, int* nan_flags,
-                                          int n, int h, int w, int c,
-                                          int h_out, int w_out, int device,
-                                          void* stream) {
-  const int64_t per_image = (int64_t)h * w * c;
-  if (n == 0 || per_image == 0) return 0;
+                                          float* d_images, int n, int h, int w,
+                                          int c, int h_out, int w_out,
+                                          int device, void* stream) {
+  if ((int64_t)n * h * w * c == 0) return 0;
   const cudaError_t set = cudaSetDevice(device);
   if (set != cudaSuccess) return (int)set;
-  const cudaStream_t st = (cudaStream_t)stream;
-  cudaError_t err = cudaMemsetAsync(d_images, 0,
-                                    (size_t)n * per_image * sizeof(float), st);
-  if (err != cudaSuccess) return (int)err;
-  err = cudaMemsetAsync(nan_flags, 0, (size_t)n * sizeof(int), st);
-  if (err != cudaSuccess) return (int)err;
-  const int64_t total = (int64_t)n * h_out * w_out * c;
-  if (total == 0) return 0;
-  rotated_sampler_bwd_images_kernel<<<(unsigned)((total + kThreads - 1) /
-                                                 kThreads),
-                                      kThreads, 0, st>>>(
-      theta, g, d_images, nan_flags, h, w, c, h_out, w_out, out_step(h_out),
-      out_step(w_out), total);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  fill_nan_images_kernel<<<dim3(64, (unsigned)n), kThreads, 0, st>>>(
-      nan_flags, d_images, per_image);
+  const int tiles_x = (w + kDimgTileX - 1) / kDimgTileX;
+  const int tiles = tiles_x * ((h + kDimgTileY - 1) / kDimgTileY);
+  auto kernel = c == 3 ? rotated_sampler_bwd_images_kernel<3> : rotated_sampler_bwd_images_kernel<0>;
+  kernel<<<(unsigned)n * (unsigned)tiles, kDimgThreads, 0, (cudaStream_t)stream>>>(
+      theta, g, d_images, h, w, c, h_out, w_out, out_step(h_out),
+      out_step(w_out), tiles_x, tiles);
   return (int)cudaGetLastError();
 }

@@ -1,14 +1,15 @@
 // Pieces shared by the crop kernels' sources (separable_sampler.cu,
-// rotated_sampler.cu): the launch width, the output positions as the plain
-// PyTorch version forms them, the NaN fill of d images, the dynamic
-// shared-memory limit, the d theta kernels' cluster reduction and cluster
-// launch, and the C error entry point. Each library includes this file;
-// ops/_cuda.py hashes it into every library's build key.
+// rotated_sampler.cu): the output positions as the plain PyTorch version
+// forms them, the dynamic shared-memory limit, the d theta kernels' launch
+// width, cluster reduction and cluster launch, and the C error entry point.
+// Each library includes this file; ops/_cuda.py hashes it into every
+// library's build key.
 
 #pragma once
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
+#include <limits.h>
 #include <math.h>
 #include <stdint.h>
 
@@ -16,7 +17,6 @@ namespace {
 
 namespace cg = cooperative_groups;
 
-constexpr int kThreads = 256;
 // The d theta kernels: one thread-block cluster of at most kClusterCtas
 // CTAs of kDthetaThreads threads per image; at N = 64, 128 CTAs, one per
 // SM of the H100's 132, all running at once. More and smaller CTAs per
@@ -31,20 +31,6 @@ constexpr int kClusterCtas = 2;
 // forms it.
 __device__ __forceinline__ float out_pos(int i, float step) {
   return __fadd_rn(-1.0f, __fmul_rn(step, (float)i));
-}
-
-// Grid (blocks, N): fills d images of every image marked in nan_flags with
-// NaN; blocks of unmarked images return at once.
-__global__ void fill_nan_images_kernel(const int* __restrict__ nan_flags,
-                                       float* __restrict__ d_images,
-                                       int64_t per_image) {
-  const int64_t n = blockIdx.y;
-  if (nan_flags[n] == 0) return;
-  const float nan = __int_as_float(0x7fc00000);
-  for (int64_t e = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-       e < per_image; e += (int64_t)gridDim.x * blockDim.x) {
-    d_images[n * per_image + e] = nan;
-  }
 }
 
 // Sums acc[k] over every thread of the calling thread-block cluster, in a

@@ -86,14 +86,51 @@
 //   bit-identical between runs. A NaN position gives NaN in the four used
 //   entries of that image's d theta, as the dense product would.
 //
-// Backward, d images (separable_sampler_bwd_images): d img = ky^T . g . kx,
-// scattered: each output element adds g * hat_y * hat_x to its <= 4 taps
-// with float atomics after the buffer is zeroed. The order of those sums
-// changes from run to run, so results agree with the plain version to a
-// tolerance of float32 rounding, not bit for bit. What bounds it: writing
-// the whole (N, H, W, C) gradient (38.5 MB at N = 64), bytes. A NaN
-// position fills that image's gradient with NaN, as the dense product
-// would. Not launched on the training path, whose images need no grad.
+// Backward, d images (separable_sampler_bwd_images): d img = ky^T . g . kx
+// per channel. What bounds it: bytes, writing all of d images (38.5 MB at
+// N = 64, 224^2x3) and reading g (4.3 MB), about 12.8 us of HBM time; each
+// element needs only the few products whose taps reach it. A scatter from
+// the outputs (each adding to its <= 4 taps) needs the gradient zeroed
+// first and float atomics, whose order of sums changes from run to run, and
+// a second pass for NaN: four device operations. The design is a gather,
+// one launch, each element of d images computed by one thread:
+// - One CTA of kDimgThreads threads per tile of one image: a band of whole
+//   input rows, at most kDimgSeg floats of each (all of a 224 x 3 row),
+//   about kDimgItems float4 stores (6 rows at 224^2x3, 2,432 CTAs at
+//   N = 64).
+// - Reach tables, built once per CTA in dynamic shared memory: every output
+//   row's and column's position from sample_pos (the one function every K1
+//   kernel uses), then for each of the tile's input rows and columns x the
+//   range [begin, end) of outputs whose hat reaches it: each output files
+//   itself under its two taps floor(p), floor(p) + 1 where |p - x| < 1 by
+//   integer atomicMin / atomicMax (the same result in any order). The
+//   positions are monotone in the output index (each _rn operation of
+//   sample_pos is monotone), so the outputs reaching x are a contiguous
+//   range: exactly those where the plain version's hat is non-zero, for a
+//   flipped (negative) scale too, and all h_out outputs at scale 0. Their
+//   unions give the output rows (the span) and columns (the window) that
+//   reach the tile.
+// - Columns first, then rows, as the plain version, kDimgStageRows output
+//   rows of the span at a time (one stage at 224^2 -> 75^2, where the
+//   span is 3 rows): their window of g is copied into shared memory with
+//   coalesced loads, several in flight per thread (read from global memory
+//   directly where the window is wider than kDimgGRow floats); then the
+//   column sums T[i, x, c] = sum_j hat(px_j - x) * g[i, j, c] over the
+//   reach of x, one thread per (i, x), into a shared stage laid out as d
+//   images' rows; then each thread takes float4 stores of the tile, adds
+//   sum_i hat(py_i - y) * T[i, x..x+3] over the stage's i in the reach of
+//   its row y (four elements per shared load) and stores them (rows_pass).
+//   No sum waits on a load of global memory. An element no output reaches
+//   is a zero. Each element is stored once; where the span outgrows one
+//   stage (a zero scale, an upsampled crop) a later stage adds onto the
+//   first's store, the same thread in a fixed order. No atomics on
+//   floats, no scratch: bit-identical between runs. A thread holds no sums
+//   across stages, which keeps it at 48 registers, five CTAs an SM; sums
+//   held in registers (80 registers) measured slower (PERF.md).
+// - NaN inside the launch: the CTA holds every position of its image, and
+//   if any is NaN it stores NaN over its tile, as the dense product
+//   poisons that whole image's gradient.
+// Not launched on the training path, whose images need no gradient.
 
 #include "sampler_common.cuh"
 
@@ -121,13 +158,6 @@ __device__ __forceinline__ float hat_grad(float d) {
   const float s = d >= 0.0f ? 1.0f : -1.0f;
   const float a = fabsf(d);
   return a < 1.0f ? -s : (a == 1.0f ? -0.5f * s : 0.0f);
-}
-
-// First tap floor(p) when some tap {floor(p), floor(p) + 1} lies in
-// [0, size - 1]; otherwise a value whose taps are both outside.
-__device__ __forceinline__ int first_tap(float p, int size) {
-  const float f = floorf(p);
-  return (f >= -1.0f && f <= (float)(size - 1)) ? (int)f : size;
 }
 
 // Weights and derivatives of the three taps floor(p) - 1 + k, k = 0..2
@@ -425,46 +455,229 @@ __global__ void __launch_bounds__(kDthetaThreads, 1) separable_sampler_bwd_theta
   }
 }
 
-// One thread per output element (n, i, j, c), as the forward: adds
-// g * hat_y * hat_x to the <= 4 taps of d images (zeroed before). A NaN
-// position marks its image in nan_flags instead.
-__global__ void separable_sampler_bwd_images_kernel(
-    const float* __restrict__ theta, const float* __restrict__ g,
-    float* __restrict__ d_images, int* __restrict__ nan_flags, int h, int w,
-    int c, int h_out, int w_out, float step_y, float step_x, int64_t total) {
-  const int64_t idx = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= total) return;
-  const int ch = (int)(idx % c);
-  int64_t rest = idx / c;
-  const int j = (int)(rest % w_out);
-  rest /= w_out;
-  const int i = (int)(rest % h_out);
-  const int64_t n = rest / h_out;
+// d images: kDimgThreads threads per CTA; a CTA takes a tile of whole
+// input rows (a band) and of at most kDimgSeg floats of them (a segment),
+// about kDimgItems stores.
+constexpr int kDimgThreads = 256;
+constexpr int kDimgItems = 4 * kDimgThreads;
+constexpr int kDimgSeg = 2048;
+// Output rows of g, and of their column sums, staged in shared memory at a
+// time; at most kDimgGRow floats of each g row (the columns that reach the
+// CTA's segment) are staged, a wider window is read from global memory.
+constexpr int kDimgStageRows = 4;
+constexpr int kDimgGRow = 2048;
 
-  const float* t = theta + n * 6;
-  const float py = sample_pos(__ldg(t + 4), __ldg(t + 5), i, step_y,
-                              0.5f * (float)(h - 1));
-  const float px = sample_pos(__ldg(t + 0), __ldg(t + 2), j, step_x,
-                              0.5f * (float)(w - 1));
-  if (isnan(py) || isnan(px)) {
-    nan_flags[n] = 1;
+template <int kVec> struct VecOf;
+template <> struct VecOf<1> { using T = float; };
+template <> struct VecOf<4> { using T = float4; };
+
+__device__ __forceinline__ void axpy(float& acc, float a, float v) { acc += a * v; }
+__device__ __forceinline__ void axpy(float4& acc, float a, float4 v) {
+  acc.x += a * v.x;
+  acc.y += a * v.y;
+  acc.z += a * v.z;
+  acc.w += a * v.w;
+}
+__device__ __forceinline__ float splat(float v, float) { return v; }
+__device__ __forceinline__ float4 splat(float v, float4) { return make_float4(v, v, v, v); }
+
+// Grid n * bands * segs; CTA (b, s) of image n takes the input rows
+// [b * h / bands, (b + 1) * h / bands) and the floats [s * seg, (s + 1) *
+// seg) of each (seg a multiple of C and of kVec, every segment but the last
+// seg long). kVec floats per store: 4 (a float4) where W * C is a multiple
+// of 4 and d images 16-byte aligned, else 1. Dynamic shared memory: the
+// stage of kDimgStageRows x seg floats (first, so 16-byte aligned), the
+// reach ranges of the segment's input columns and of the CTA's rows (int2),
+// then the h_out row and w_out column positions. Three phases:
+//   tables: positions, NaN test, reach ranges; the output rows [i_lo, i_hi)
+//     that reach the band;
+//   stage, kDimgStageRows output rows i at a time: the column sums
+//     T[i, x, c] = sum_j hat(px_j - x) * g[i, j, c] over the reach of x,
+//     one thread per (i, x), from g's rows staged in shared memory;
+//   rows (rows_pass): d img[y, x, c] += hat(py_i - y) * T[i, x, c] for the
+//     i of the stage in the reach of y, a whole kVec-float store's worth
+//     read from the stage at once, and stored.
+// kC is the channel count (3 on the main path); 0 takes any C.
+template <int kC, int kVec>
+__global__ void __launch_bounds__(kDimgThreads) separable_sampler_bwd_images_kernel(
+    const float* __restrict__ theta, const float* __restrict__ g,
+    float* __restrict__ d_images, int h, int w, int c, int h_out, int w_out,
+    float step_y, float step_x, int bands, int segs, int seg, int g_cap) {
+  using Vec = typename VecOf<kVec>::T;
+  constexpr int kLoaded = kC > 0 ? kC : 1;  // channels summed together
+  const int channels = kC > 0 ? kC : c;
+  extern __shared__ float4 smem[];
+  __shared__ int span_lo, span_hi, window_lo, window_hi;
+  const int tid = threadIdx.x;
+  const int n = (int)(blockIdx.x / (unsigned)(bands * segs));
+  const int tile = (int)blockIdx.x - n * bands * segs;
+  const int band = tile / segs;
+  const int f_begin = (tile - band * segs) * seg;
+  const int row_len = w * channels;  // floats of one input row
+  const int f_len = min(seg, row_len - f_begin);
+  const int x_begin = f_begin / channels, xs = f_len / channels;
+  const int row_begin = (int)((int64_t)band * h / bands);
+  const int rows = (int)((int64_t)(band + 1) * h / bands) - row_begin;
+  float* stage = reinterpret_cast<float*>(smem);  // [kDimgStageRows][seg]
+  int2* col_reach = reinterpret_cast<int2*>(stage + kDimgStageRows * seg);  // of x_begin + k
+  int2* row_reach = col_reach + xs;
+  float* py = reinterpret_cast<float*>(row_reach + rows);
+  float* px = py + h_out;
+  float* g_stage = px + w_out;  // [kDimgStageRows][g_cap]
+  const int chunks = f_len / kVec;  // stores per row of the tile
+  const int items = rows * chunks;
+  float* dst = d_images + ((int64_t)n * h + row_begin) * row_len + f_begin;
+
+  // theta (N, 2, 3) row-major: sx = t[0], tx = t[2], sy = t[4], ty = t[5].
+  const float* t = theta + (int64_t)n * 6;
+  const float sx = __ldg(t + 0), tx = __ldg(t + 2);
+  const float sy = __ldg(t + 4), ty = __ldg(t + 5);
+  const float half_y = 0.5f * (float)(h - 1), half_x = 0.5f * (float)(w - 1);
+  bool nan = false;
+  for (int k = tid; k < h_out + w_out; k += kDimgThreads) {
+    const float p = k < h_out ? sample_pos(sy, ty, k, step_y, half_y)
+                              : sample_pos(sx, tx, k - h_out, step_x, half_x);
+    py[k] = p;  // px = py + h_out
+    nan |= isnan(p);
+  }
+  for (int k = tid; k < xs + rows; k += kDimgThreads) col_reach[k] = make_int2(INT_MAX, 0);
+  if (tid == 0) {
+    span_lo = window_lo = INT_MAX;
+    span_hi = window_hi = 0;
+  }
+  if (__syncthreads_or(nan)) {  // a NaN hat poisons the whole dense product
+    const Vec v = splat(__int_as_float(0x7fc00000), Vec());
+    for (int e = tid; e < items; e += kDimgThreads) {
+      const int r = e / chunks;
+      reinterpret_cast<Vec*>(dst + r * row_len)[e - r * chunks] = v;
+    }
     return;
   }
-  const int y0 = first_tap(py, h);
-  const int x0 = first_tap(px, w);
-  const float gv = __ldg(g + idx);
-  float* dimg = d_images + n * (int64_t)h * w * c + ch;
-  for (int x = x0; x <= x0 + 1; ++x) {
-    if (x < 0 || x >= w) continue;
-    const float gx = hat(px, x) * gv;
-    if (gx == 0.0f) continue;
-    for (int y = y0; y <= y0 + 1; ++y) {
-      if (y < 0 || y >= h) continue;
-      const float wy = hat(py, y);
-      if (wy == 0.0f) continue;
-      atomicAdd(dimg + ((int64_t)y * w + x) * c, wy * gx);
+  // The reach ranges: each output k files itself under its taps
+  // floor(p_k) + t, t = 0, 1, on the tile where |p_k - x| < 1 (every input
+  // index where its hat is non-zero, and only those), by integer min and
+  // max, whose result is the same in any order. The positions are monotone
+  // in k, so each range holds exactly the outputs whose hat reaches x. The
+  // unions, reduced per warp: the output rows that reach the band (the
+  // span) and the output columns that reach the segment (the window).
+  for (int k0 = 0; k0 < h_out + w_out; k0 += kDimgThreads) {
+    const int k = k0 + tid;
+    const bool is_row = k < h_out;
+    const int idx = is_row ? k : k - h_out, first = is_row ? row_begin : x_begin;
+    const int count = is_row ? rows : xs;
+    int row_lo = INT_MAX, row_hi = 0, col_lo = INT_MAX, col_hi = 0;
+    if (k < h_out + w_out) {
+      const float p = py[k];  // px = py + h_out
+      const float f = floorf(p);
+      if (f >= (float)(first - 1) && f <= (float)(first + count - 1)) {
+        for (int t = 0; t < 2; ++t) {
+          const int x = (int)f + t;
+          if (x < first || x >= first + count || !(fabsf(__fsub_rn(p, (float)x)) < 1.0f)) continue;
+          int2* range = (is_row ? row_reach : col_reach) + (x - first);
+          atomicMin(&range->x, idx);
+          atomicMax(&range->y, idx + 1);
+          (is_row ? row_lo : col_lo) = idx;
+          (is_row ? row_hi : col_hi) = idx + 1;
+        }
+      }
+    }
+    row_lo = __reduce_min_sync(0xffffffffu, row_lo);
+    row_hi = __reduce_max_sync(0xffffffffu, row_hi);
+    col_lo = __reduce_min_sync(0xffffffffu, col_lo);
+    col_hi = __reduce_max_sync(0xffffffffu, col_hi);
+    if ((tid & 31) == 0) {
+      if (row_lo < row_hi) {
+        atomicMin(&span_lo, row_lo);
+        atomicMax(&span_hi, row_hi);
+      }
+      if (col_lo < col_hi) {
+        atomicMin(&window_lo, col_lo);
+        atomicMax(&window_hi, col_hi);
+      }
     }
   }
+  __syncthreads();
+
+  // Adds, for each store of the tile, sum_i hat(py_i - y) * T[i, x..] over
+  // the stage's i in the reach of its row y: the first stage writes every
+  // store (zeros where no i of it reaches), a later one only the stores
+  // some i of it reaches, onto what the first wrote (the same thread's
+  // element, so each sum runs over i in order).
+  auto rows_pass = [&](int i0, int stage_rows, bool first) {
+    const int dr = kDimgThreads / chunks, dq = kDimgThreads - dr * chunks;
+    int r = tid / chunks, q = tid - r * chunks;
+    for (int e = tid; e < items; e += kDimgThreads) {
+      const int2 ri = row_reach[r];
+      const int lo = max(ri.x, i0), hi = min(ri.y, i0 + stage_rows);
+      Vec* out = reinterpret_cast<Vec*>(dst + r * row_len) + q;
+      if (first || lo < hi) {
+        Vec acc = first ? splat(0.0f, Vec()) : *out;
+        const int y = row_begin + r;
+        for (int i = lo; i < hi; ++i) {  // then over the rows, as ky^T . (.)
+          axpy(acc, hat(py[i], y), reinterpret_cast<const Vec*>(stage + (i - i0) * seg)[q]);
+        }
+        *out = acc;
+      }
+      r += dr;
+      q += dq;
+      if (q >= chunks) {
+        q -= chunks;
+        ++r;
+      }
+    }
+  };
+  const float* gn = g + (int64_t)n * h_out * w_out * channels;
+  const int g_row = w_out * channels;
+  const int i_begin = span_lo, i_end = span_hi;
+  const int window = max(0, window_hi - window_lo) * channels;
+  const int j_begin = window > 0 ? window_lo : 0;
+  // g's window of a staged row, or g itself where the window is too wide
+  const bool staged = window <= g_cap;
+  const int src_row = staged ? g_cap : g_row, src_col = staged ? j_begin : 0;
+  for (int i0 = i_begin; i0 < i_end; i0 += kDimgStageRows) {
+    const int stage_rows = min(kDimgStageRows, i_end - i0);
+    __syncthreads();  // every thread is done with the last stage
+    if (staged) {  // coalesced loads, several in flight per thread
+      for (int r = 0; r < stage_rows; ++r) {
+        const float* gi = gn + (i0 + r) * g_row + j_begin * channels;
+#pragma unroll 4
+        for (int k = tid; k < window; k += kDimgThreads) g_stage[r * g_cap + k] = __ldg(gi + k);
+      }
+      __syncthreads();
+    }
+    const float* src = staged ? g_stage : gn + i0 * g_row;
+    // entries (r, x) of the stage, stepped without a division
+    const int dr = kDimgThreads / xs, dx = kDimgThreads - dr * xs;
+    int r = tid / xs, xl = tid - r * xs;
+    for (int e = tid; e < stage_rows * xs; e += kDimgThreads) {
+      const int2 rj = col_reach[xl];
+      const int x = x_begin + xl;
+      const float* gi = src + r * src_row;
+      float* out = stage + r * seg + xl * channels;
+      for (int ch0 = 0; ch0 < channels; ch0 += kLoaded) {
+        float s[kLoaded];
+#pragma unroll
+        for (int cc = 0; cc < kLoaded; ++cc) s[cc] = 0.0f;
+        for (int j = rj.x; j < rj.y; ++j) {  // over the columns first, as kx . g
+          const float wx = hat(px[j], x);
+          const float* gj = gi + (j - src_col) * channels + ch0;
+#pragma unroll
+          for (int cc = 0; cc < kLoaded; ++cc) s[cc] += wx * gj[cc];
+        }
+#pragma unroll
+        for (int cc = 0; cc < kLoaded; ++cc) out[ch0 + cc] = s[cc];
+      }
+      r += dr;
+      xl += dx;
+      if (xl >= xs) {
+        xl -= xs;
+        ++r;
+      }
+    }
+    __syncthreads();
+    rows_pass(i0, stage_rows, i0 == i_begin);
+  }
+  if (i_begin >= i_end) rows_pass(0, 0, true);  // no output row reaches the tile: zeros
 }
 
 }  // namespace
@@ -516,34 +729,44 @@ extern "C" int separable_sampler_bwd_theta(const float* images,
 }
 
 // d images (n, h, w, c) from theta (n, 2, 3) and the crop's cotangent g
-// (n, h_out, w_out, c); nan_flags is scratch of n ints. All contiguous, on
-// card `device`. A memset, the scatter, a second memset-sized pass only for
-// images with a NaN position; returns the first CUDA error (0 on success).
+// (n, h_out, w_out, c), h_out and w_out at least 1, c at most kDimgItems.
+// All float32, contiguous, on card `device`; offsets inside an image in 32
+// bits. One launch on `stream` that writes every element; returns its CUDA
+// error (0 on success; cudaErrorInvalidValue for a wider c or a crop whose
+// positions overflow shared memory).
 extern "C" int separable_sampler_bwd_images(const float* theta, const float* g,
-                                            float* d_images, int* nan_flags,
-                                            int n, int h, int w, int c,
-                                            int h_out, int w_out, int device,
-                                            void* stream) {
-  const int64_t per_image = (int64_t)h * w * c;
-  if (n == 0 || per_image == 0) return 0;
+                                            float* d_images, int n, int h,
+                                            int w, int c, int h_out, int w_out,
+                                            int device, void* stream) {
+  if ((int64_t)n * h * w * c == 0) return 0;
+  if (c > kDimgItems) return (int)cudaErrorInvalidValue;
   const cudaError_t set = cudaSetDevice(device);
   if (set != cudaSuccess) return (int)set;
-  const cudaStream_t st = (cudaStream_t)stream;
-  cudaError_t err = cudaMemsetAsync(d_images, 0,
-                                    (size_t)n * per_image * sizeof(float), st);
+  const int row_len = w * c;
+  const bool vec = row_len % 4 == 0 && c <= kDimgSeg / 4 &&
+                   reinterpret_cast<uintptr_t>(d_images) % 16 == 0;
+  // a segment holds whole pixels and whole stores: a multiple of c (and of
+  // 4 c / gcd(c, 4) with float4 stores), at most kDimgItems stores
+  const int unit = vec ? (c % 4 == 0 ? c : (c % 2 == 0 ? 2 * c : 4 * c)) : c;
+  const int most = vec ? kDimgSeg : kDimgItems;
+  const int seg = min(row_len, most / unit * unit);
+  const int segs = (row_len + seg - 1) / seg;
+  const int chunks = vec ? seg / 4 : seg;
+  const int band_rows = max(1, kDimgItems / chunks);
+  const int bands = (h + band_rows - 1) / band_rows;
+  const int rows = (h + bands - 1) / bands;  // the most any CTA takes
+  const int g_cap = min(w_out * c, kDimgGRow);
+  const size_t smem = (size_t)kDimgStageRows * seg * sizeof(float) +
+                      (size_t)(seg / c + rows) * sizeof(int2) +
+                      (size_t)(h_out + w_out + kDimgStageRows * g_cap) * sizeof(float);
+  auto kernel = c == 3 ? (vec ? separable_sampler_bwd_images_kernel<3, 4>
+                              : separable_sampler_bwd_images_kernel<3, 1>)
+                       : (vec ? separable_sampler_bwd_images_kernel<0, 4>
+                              : separable_sampler_bwd_images_kernel<0, 1>);
+  const cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return (int)err;
-  err = cudaMemsetAsync(nan_flags, 0, (size_t)n * sizeof(int), st);
-  if (err != cudaSuccess) return (int)err;
-  const int64_t total = (int64_t)n * h_out * w_out * c;
-  if (total == 0) return 0;
-  separable_sampler_bwd_images_kernel<<<(unsigned)((total + kThreads - 1) /
-                                                   kThreads),
-                                        kThreads, 0, st>>>(
-      theta, g, d_images, nan_flags, h, w, c, h_out, w_out, out_step(h_out),
-      out_step(w_out), total);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  fill_nan_images_kernel<<<dim3(64, (unsigned)n), kThreads, 0, st>>>(
-      nan_flags, d_images, per_image);
+  kernel<<<(unsigned)n * (unsigned)(bands * segs), kDimgThreads, smem, (cudaStream_t)stream>>>(
+      theta, g, d_images, h, w, c, h_out, w_out, out_step(h_out),
+      out_step(w_out), bands, segs, seg, g_cap);
   return (int)cudaGetLastError();
 }

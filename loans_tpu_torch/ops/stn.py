@@ -49,8 +49,7 @@ import torch
 from loans_tpu_torch.ops import _cuda
 from loans_tpu_torch.ops.geometry import Size
 
-# The forward and d theta kernels index inside an image and inside a crop
-# in 32 bits.
+# The kernels index inside an image and inside a crop in 32 bits.
 _MAX_IMAGE_ELEMENTS = 2**31 - 1
 
 
@@ -477,8 +476,8 @@ def _bwd_images_kernel(
     library: str, owner: Callable,
     theta: torch.Tensor, g: torch.Tensor, image_shape: tuple[int, int, int, int],
 ) -> torch.Tensor:
-    """The d images kernel ``<library>_bwd_images`` (+ memsets and the NaN
-    fill); counts in ``owner.launches_bwd_images``."""
+    """The d images kernel ``<library>_bwd_images``, one launch that writes
+    every element; counts in ``owner.launches_bwd_images``."""
     what = f"{library}_bwd_images"
     g = g.contiguous()
     _check_cuda_float32(what, theta=theta, g=g)
@@ -490,11 +489,11 @@ def _bwd_images_kernel(
     d_images = torch.empty((n, h, w, c), dtype=torch.float32, device=g.device)
     if d_images.numel() == 0 or g.numel() == 0:
         return d_images.zero_()
-    nan_flags = torch.empty((n,), dtype=torch.int32, device=g.device)
+    _check_offsets(what, (h, w, c), (h_out, w_out, c))
     stream = torch.cuda.current_stream(g.device).cuda_stream
     _launch(
         library, what, owner, "launches_bwd_images",
-        theta.data_ptr(), g.data_ptr(), d_images.data_ptr(), nan_flags.data_ptr(),
+        theta.data_ptr(), g.data_ptr(), d_images.data_ptr(),
         n, h, w, c, h_out, w_out, g.device.index, stream,
     )
     return d_images
@@ -522,9 +521,9 @@ def separable_sampler_bwd_images(
     theta: torch.Tensor, g: torch.Tensor, image_shape: tuple[int, int, int, int]
 ) -> torch.Tensor:
     """d images of the crop as the CUDA kernel
-    ``separable_sampler_bwd_images`` (kyᵀ · g · kx, scattered with float
-    atomics, so the order of its sums changes from run to run) — the
-    kernel of ``sample_separable_bwd(..., need_theta=False)``.
+    ``separable_sampler_bwd_images`` (kyᵀ · g · kx, gathered: each element
+    sums, in a fixed order, the outputs whose hat reaches it) — the kernel
+    of ``sample_separable_bwd(..., need_theta=False)``.
 
     Takes CUDA float32 tensors on one device: contiguous ``theta``
     (N, 2, 3) and the cotangent ``g`` (N, H_out, W_out, C), made
@@ -532,7 +531,8 @@ def separable_sampler_bwd_images(
     to ``sample_separable_kernel.launches_bwd_images``.
 
     Returns:
-      float32 d images of ``image_shape`` (N, H, W, C).
+      float32 d images of ``image_shape`` (N, H, W, C), one launch.
+      Deterministic.
     """
     return _bwd_images_kernel("separable_sampler", sample_separable_kernel, theta, g, image_shape)
 
@@ -560,8 +560,9 @@ def rotated_sampler_bwd_images(
     theta: torch.Tensor, g: torch.Tensor, image_shape: tuple[int, int, int, int]
 ) -> torch.Tensor:
     """d images of the rotated crop as the CUDA kernel
-    ``rotated_sampler_bwd_images`` (scattered with float atomics, so the
-    order of its sums changes from run to run) — the kernel of
+    ``rotated_sampler_bwd_images`` (per tile of pixels, the outputs whose
+    taps reach it, found through the inverse of theta's linear part, added
+    in a fixed order) — the kernel of
     ``sample_rotated_bwd(..., need_theta=False)``.
 
     Takes CUDA float32 tensors on one device: contiguous ``theta``
@@ -570,7 +571,8 @@ def rotated_sampler_bwd_images(
     to ``sample_rotated_kernel.launches_bwd_images``.
 
     Returns:
-      float32 d images of ``image_shape`` (N, H, W, C).
+      float32 d images of ``image_shape`` (N, H, W, C), one launch.
+      Deterministic.
     """
     return _bwd_images_kernel("rotated_sampler", sample_rotated_kernel, theta, g, image_shape)
 

@@ -82,3 +82,14 @@ def test_bwd_theta_takes_no_scratch():
     for library in _cuda.SIGNATURES:
         argtypes, _ = _definitions(library)[f"{library}_bwd_theta"]
         assert argtypes.count(ctypes.c_void_p) == 5, library
+
+
+def test_bwd_images_takes_no_scratch():
+    """The d images kernels write every element in one launch, with no
+    memset and no NaN flags: theta, g and d images are their only pointers,
+    then the stream."""
+    for library in _cuda.SIGNATURES:
+        argtypes, _ = _definitions(library)[f"{library}_bwd_images"]
+        assert argtypes.count(ctypes.c_void_p) == 4, library
+        assert argtypes[:3] == [ctypes.c_void_p] * 3 and argtypes[-1] is ctypes.c_void_p, library
+        assert argtypes[3:-1] == [ctypes.c_int] * 7, library

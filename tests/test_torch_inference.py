@@ -12,12 +12,14 @@ float32 networks differ only in summation order (see
 """
 
 import os
+import shutil
 import sys
 from pathlib import Path
 
 import numpy as np
 import jax.numpy as jnp
 import pytest
+import torch
 
 from loans_tpu import models as jmodels
 from loans_tpu.inference import LocalizerInference as JaxInference
@@ -146,6 +148,38 @@ def test_unported_options_and_missing_snapshots_raise(log_dir, tmp_path):
     checkpoint.save_manifest(str(tmp_path), MANIFEST)
     with pytest.raises(FileNotFoundError, match="Localizer"):
         LocalizerInference(str(tmp_path), device="cpu")
+
+
+def test_missing_assessor_snapshot_is_served_with_initial_parameters(log_dir, tmp_path):
+    """A log dir with localizer snapshots but no assessor snapshot: the JAX
+    package serves it with the assessor's initial parameters (``key(0)``),
+    and so does the port (seed 0, with a warning). The initialisers differ,
+    so only the boxes are held to JAX; the port's scores are pinned by
+    being finite and the same for two constructions; the assessor's
+    initialisation draws nothing from the global random stream."""
+    bare = tmp_path / "no_assessor"
+    shutil.copytree(log_dir, bare, ignore=shutil.ignore_patterns("ResnetAssessor_*"))
+    assert not checkpoint.list_snapshots(str(bare), "ResnetAssessor_")
+    frames = scenes(4, 5)
+    want_boxes, _, _, _ = JaxInference(str(bare), use_assessor=True, score_threshold=0.0).localize_batch(frames)
+    got = []
+    for _ in range(2):
+        stream = torch.random.get_rng_state()
+        LocalizerInference(str(bare), device="cpu")  # the localizer alone
+        without = torch.random.get_rng_state()
+        torch.random.set_rng_state(stream)
+        with pytest.warns(UserWarning, match="no ResnetAssessor_.*no_assessor"):
+            port = LocalizerInference(str(bare), device="cpu", use_assessor=True, score_threshold=0.0)
+        assert torch.equal(torch.random.get_rng_state(), without)
+        got.append(port.localize_batch(frames))
+    (boxes, _, scores, _), (_, _, scores_again, _) = got
+    np.testing.assert_allclose(boxes, np.asarray(want_boxes), atol=1e-3)
+    assert scores.shape == (5,) and np.isfinite(scores).all()
+    np.testing.assert_array_equal(scores, scores_again)
+    # the localizer snapshot is still required
+    os.remove(bare / "Localizer_5.pt")
+    with pytest.raises(FileNotFoundError, match="Localizer"):
+        LocalizerInference(str(bare), device="cpu", use_assessor=True)
 
 
 def test_image_cli_on_cpu(log_dir, tmp_path, capsys):

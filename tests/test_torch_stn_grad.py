@@ -26,6 +26,11 @@ import jax.numpy as jnp
 import pytest
 import torch
 
+try:
+    from hypothesis import given, settings, strategies as st
+except ImportError:  # seeded sweeps instead
+    given = None
+
 from loans_tpu.ops import stn as jstn
 from loans_tpu.ops.geometry import Size as JSize
 from loans_tpu_torch.ops import stn
@@ -60,6 +65,13 @@ CASES = {
     "identity_ties": (lambda r: (r.uniform(size=(2, 9, 9, 2)), _tile([[1, 0, 0], [0, 1, 0]], 2)), (9, 9)),
     # dyadic scale and shift: p = 0, 2, 4, 6, 8 (x) and 0, 1, 2, 3, 4 (y)
     "dyadic_ties": (lambda r: (r.uniform(size=(2, 9, 9, 1)), _tile([[1, 0, 0], [0, 0.5, -0.5]], 2)), (5, 5)),
+    # scale 0: every output on one pixel (p = 6.215 in y, 3.555 in x), so
+    # each of its taps sums all 42 outputs
+    "zero_scale": (lambda r: (r.uniform(size=(2, 12, 10, 2)), _tile([[0, 0, -0.21], [0, 0, 0.13]], 2)), (7, 6)),
+    # negative scales: the positions fall as the output index grows
+    "flip": (lambda r: (r.uniform(size=(2, 12, 10, 3)), _tile([[-0.7, 0, 0.1], [0, -0.9, 0.05]], 2)), (7, 6)),
+    # 8^2 -> 20^2: several outputs per input row and column
+    "upsample": (lambda r: (r.uniform(size=(2, 8, 8, 2)), axis_aligned_theta(r, 2)), (20, 20)),
 }
 
 
@@ -203,3 +215,45 @@ def test_backward_kernels_refuse_cpu_tensors():
         stn.separable_sampler_bwd_images(theta, g, tuple(img.shape))
     assert before == (stn.sample_separable_kernel.launches_bwd_theta,
                       stn.sample_separable_kernel.launches_bwd_images)
+
+
+def _reach_ranges(pos: np.ndarray, size: int) -> list[tuple[int, int]]:
+    """The d images kernel's reach ranges (``csrc/separable_sampler.cu``)
+    in numpy float32: each output k files itself under its taps floor(p_k)
+    and floor(p_k) + 1 where |p_k - x| < 1, by min and max."""
+    ranges = [(len(pos), 0)] * size
+    for k, p in enumerate(pos):
+        if not np.isfinite(np.floor(p)):
+            continue
+        for x in (int(np.floor(p)), int(np.floor(p)) + 1):
+            if 0 <= x < size and abs(np.float32(p - np.float32(x))) < 1.0:
+                lo, hi = ranges[x]
+                ranges[x] = (min(lo, k), max(hi, k + 1))
+    return ranges
+
+
+def _check_separable_reach(scale: float, shift: float, out: int, size: int) -> None:
+    """The d images kernel's reach ranges hold exactly the outputs whose
+    hat is non-zero on each input index, the plain version's ky: the taps
+    floor(p) and floor(p) + 1 find them all, and as the positions are
+    monotone they are one contiguous range."""
+    t = torch.tensor([scale], dtype=torch.float32)
+    d = stn._offsets(t, torch.tensor([shift], dtype=torch.float32), out, size)[0]  # p_i - x
+    live = (stn._hat(d) != 0).numpy()
+    pos = d[:, 0].numpy()  # p_i - 0
+    for x, (lo, hi) in enumerate(_reach_ranges(pos, size)):
+        assert list(np.flatnonzero(live[:, x])) == list(range(lo, hi)), (scale, shift, out, size, x)
+
+
+if given is not None:
+    @settings(max_examples=150, deadline=None, database=None)
+    @given(scale=st.floats(-2.0, 2.0, width=32), shift=st.floats(-2.0, 2.0, width=32),
+           out=st.integers(1, 40), size=st.integers(1, 40))
+    def test_separable_reach_is_exactly_the_live_outputs(scale, shift, out, size):
+        _check_separable_reach(scale, shift, out, size)
+else:
+    @pytest.mark.parametrize("seed", range(150))
+    def test_separable_reach_is_exactly_the_live_outputs(seed):
+        r = np.random.default_rng(seed)
+        scale = 0.0 if seed % 10 == 0 else float(r.uniform(-2, 2))
+        _check_separable_reach(scale, float(r.uniform(-2, 2)), int(r.integers(1, 41)), int(r.integers(1, 41)))

@@ -22,11 +22,18 @@ few products); d theta 1e-5 relative to its largest entry (both sides sum
 the same products in another order; measured up to 6.3e-7).
 """
 
+import math
+
 import numpy as np
 import jax
 import jax.numpy as jnp
 import pytest
 import torch
+
+try:
+    from hypothesis import given, settings, strategies as st
+except ImportError:  # seeded sweeps instead
+    given = None
 
 from loans_tpu.ops import stn as jstn
 from loans_tpu.ops.geometry import Size as JSize
@@ -77,6 +84,14 @@ CASES = {
     # neighbouring output pixels share taps
     "upsample": (lambda r: (r.uniform(size=(2, 9, 9, 3)), rotated_theta(r, 2)), (20, 20)),
     "c4": (lambda r: (r.uniform(size=(2, 12, 10, 4)), rotated_theta(r, 2)), (5, 6)),
+    # scale 0: every output on one pixel
+    "zero_scale": (lambda r: (r.uniform(size=(2, 12, 10, 2)), _tile([[0, 0, -0.21], [0, 0, 0.13]], 2)), (7, 6)),
+    # negative scales, rotated
+    "flip": (lambda r: (r.uniform(size=(2, 12, 10, 3)), _tile([[-0.7, 0.2, 0.1], [-0.15, -0.9, 0.05]], 2)), (7, 6)),
+    # rank 1: the outputs lie on one line through the image
+    "rank1": (lambda r: (r.uniform(size=(2, 12, 10, 2)), _tile([[0.6, 0.3, 0.1], [0.4, 0.2, -0.1]], 2)), (7, 6)),
+    "near_singular": (lambda r: (r.uniform(size=(2, 12, 10, 2)), _tile([[0.6, 0.3, 0.1], [0.4, 0.2001, -0.1]], 2)),
+                      (7, 6)),
 }
 TIES = ("identity_ties",)
 
@@ -242,3 +257,146 @@ def test_bench_samplers_refuses_a_device_that_is_not_cuda():
     """The sampler bench times the card only: it does not fall back."""
     with pytest.raises(SystemExit, match="CUDA"):
         bench_samplers.main(["--device", "cpu"])
+
+
+def _reach_boxes(theta: np.ndarray, out: tuple[int, int], h: int, w: int, margin: float):
+    """``inverse_map`` and ``reach_box`` of ``csrc/rotated_sampler.cu`` in
+    double: for each input pixel (y, x), the boxes [lo, hi] of output rows
+    i and columns j that can reach it, widened by ``margin`` indices."""
+    h_out, w_out = out
+    step_y = float(np.float32(2.0 / (h_out - 1))) if h_out > 1 else 0.0
+    step_x = float(np.float32(2.0 / (w_out - 1))) if w_out > 1 else 0.0
+    half_y, half_x = float(np.float32(0.5) * np.float32(h - 1)), float(np.float32(0.5) * np.float32(w - 1))
+    t = [float(v) for v in theta.reshape(-1)]
+    a, b, c, d = half_x * t[0] * step_x, half_x * t[1] * step_y, half_y * t[3] * step_x, half_y * t[4] * step_y
+    b0, b1 = half_x * (t[2] + 1 - t[0] - t[1]), half_y * (t[5] + 1 - t[3] - t[4])
+    det = a * d - b * c
+    ex = 2.0**-18 * half_x * (abs(t[0]) + abs(t[1]) + abs(t[2]) + 1)
+    ey = 2.0**-18 * half_y * (abs(t[3]) + abs(t[4]) + abs(t[5]) + 1)
+    full = (0, w_out - 1), (0, h_out - 1)
+    if det == 0.0:
+        return lambda y, x: full
+    inv = ((d / det, -b / det), (-c / det, a / det))
+
+    def box(axis, dx, dy, out_dim):
+        center = inv[axis][0] * dx + inv[axis][1] * dy
+        radius = abs(inv[axis][0]) * (1 + ex) + abs(inv[axis][1]) * (1 + ey) + margin
+        return max(math.ceil(center - radius), 0), min(math.floor(center + radius), out_dim - 1)
+
+    if not all(math.isfinite(v) for v in (*inv[0], *inv[1], b0, b1, ex, ey)):
+        return lambda y, x: full
+    return lambda y, x: (box(0, x - b0, y - b1, w_out), box(1, x - b0, y - b1, h_out))
+
+
+def _check_rotated_reach(theta: np.ndarray, out: tuple[int, int], h: int, w: int) -> None:
+    """Every live tap of ``_axis_taps`` (a non-zero hat on both axes) lies
+    in the d images kernel's reach box of its pixel, with the kernel's
+    margin of one index and with none (the rounding bound alone)."""
+    px, py = stn._rotated_positions(torch.from_numpy(theta[None]), Size(*out), h, w)
+    xs, ys = stn._axis_taps(px[0], w), stn._axis_taps(py[0], h)
+    boxes = [_reach_boxes(theta, out, h, w, margin) for margin in (1.0, 0.0)]
+    for ty in ys:
+        for tx in xs:
+            for i, j in np.argwhere(((ty.hat != 0) & (tx.hat != 0)).numpy()):
+                y, x = int(ty.index[i, j]), int(tx.index[i, j])
+                for reach in boxes:
+                    (j0, j1), (i0, i1) = reach(y, x)
+                    assert j0 <= j <= j1 and i0 <= i <= i1, (theta.tolist(), out, h, w, (i, j), (y, x))
+
+
+if given is not None:
+    @settings(max_examples=150, deadline=None, database=None)
+    @given(theta=st.lists(st.floats(-1.5, 1.5, width=32), min_size=6, max_size=6),
+           out=st.tuples(st.integers(1, 12), st.integers(1, 12)),
+           h=st.integers(1, 24), w=st.integers(1, 24))
+    def test_rotated_reach_holds_every_live_tap(theta, out, h, w):
+        _check_rotated_reach(np.asarray(theta, np.float32).reshape(2, 3), out, h, w)
+else:
+    @pytest.mark.parametrize("seed", range(150))
+    def test_rotated_reach_holds_every_live_tap(seed):
+        r = np.random.default_rng(seed)
+        theta = r.uniform(-1.5, 1.5, (2, 3)).astype(np.float32)
+        out = (int(r.integers(1, 13)), int(r.integers(1, 13)))
+        _check_rotated_reach(theta, out, int(r.integers(1, 25)), int(r.integers(1, 25)))
+
+
+@pytest.mark.parametrize("name", ["zero_scale", "rank1", "near_singular", "flip", "upsample"])
+def test_rotated_reach_holds_every_live_tap_of_the_degenerate_cases(name):
+    img, theta, _, out = _case(name)
+    for t in theta:
+        _check_rotated_reach(t, out, img.shape[1], img.shape[2])
+
+
+def _cell_stride(theta: np.ndarray, out: tuple[int, int], h: int, w: int) -> int:
+    """``cell_stride`` of ``csrc/rotated_sampler.cu`` in double: the least
+    power of two s whose lattice check passes (2^30 where the map is not
+    invertible: the kernel then scans)."""
+    h_out, w_out = out
+    step_y = float(np.float32(2.0 / (h_out - 1))) if h_out > 1 else 0.0
+    step_x = float(np.float32(2.0 / (w_out - 1))) if w_out > 1 else 0.0
+    half_y, half_x = float(np.float32(0.5) * np.float32(h - 1)), float(np.float32(0.5) * np.float32(w - 1))
+    t = [float(v) for v in theta.reshape(-1)]
+    a, b, c, d = half_x * t[0] * step_x, half_x * t[1] * step_y, half_y * t[3] * step_x, half_y * t[4] * step_y
+    ex = 2.0**-18 * half_x * (abs(t[0]) + abs(t[1]) + abs(t[2]) + 1)
+    ey = 2.0**-18 * half_y * (abs(t[3]) + abs(t[4]) + abs(t[5]) + 1)
+    det = a * d - b * c
+    if det == 0.0 or not all(math.isfinite(v) for v in (d / det, b / det, c / det, a / det, ex, ey)):
+        return 2**30
+    need = 1.0 + 2.0 * max(ex, ey)
+    norm = max(abs(d) + abs(b), abs(c) + abs(a)) / abs(det)
+    vectors = [(wj, wi) for wi in range(3) for wj in range(-2, 3) if not (wi == 0 and wj <= 0)]
+    s = 1
+    while s < 2**30:
+        if 3.0 * s >= need * norm and all(
+            max(abs(s * (a * wj + b * wi)), abs(s * (c * wj + d * wi))) >= need for wj, wi in vectors
+        ):
+            return s
+        s *= 2
+    return 2**30
+
+
+def _check_classes_keep_cells_apart(theta: np.ndarray, out: tuple[int, int], h: int, w: int) -> None:
+    """Two distinct outputs whose row and column differ by multiples of the
+    d images kernel's cell stride never share a cell (floor(px), floor(py))
+    of the float32 positions: so one round may file a class, one candidate
+    a cell."""
+    s = _cell_stride(theta, out, h, w)
+    if s >= 2**30:
+        return
+    px, py = stn._rotated_positions(torch.from_numpy(theta[None]), Size(*out), h, w)
+    cells = np.stack([np.floor(px[0].numpy()), np.floor(py[0].numpy())], -1)
+    for i in range(min(s, out[0])):
+        for j in range(min(s, out[1])):
+            members = cells[i::s, j::s].reshape(-1, 2)
+            members = members[np.isfinite(members).all(1)]
+            assert len(np.unique(members, axis=0)) == len(members), (theta.tolist(), out, h, w, s, (i, j))
+
+
+if given is not None:
+    @settings(max_examples=200, deadline=None, database=None)
+    @given(theta=st.lists(st.floats(-1.5, 1.5, width=32), min_size=6, max_size=6),
+           out=st.tuples(st.integers(1, 24), st.integers(1, 24)),
+           h=st.integers(1, 64), w=st.integers(1, 64))
+    def test_cell_stride_keeps_a_class_one_output_a_cell(theta, out, h, w):
+        _check_classes_keep_cells_apart(np.asarray(theta, np.float32).reshape(2, 3), out, h, w)
+else:
+    @pytest.mark.parametrize("seed", range(200))
+    def test_cell_stride_keeps_a_class_one_output_a_cell(seed):
+        r = np.random.default_rng(seed)
+        theta = r.uniform(-1.5, 1.5, (2, 3)).astype(np.float32)
+        out = (int(r.integers(1, 25)), int(r.integers(1, 25)))
+        _check_classes_keep_cells_apart(theta, out, int(r.integers(1, 65)), int(r.integers(1, 65)))
+
+
+@pytest.mark.parametrize("rows, stride", [
+    ([[0.7, 0.15, 0.1], [-0.12, 0.6, -0.1]], 1),  # the sampler bench's theta: one round
+    ([[0.3, 0.0, 0.1], [0.0, 0.3, -0.1]], 2),  # outputs 0.9 px apart: 4 rounds
+    ([[0.35, 0.3, 0.0], [0.3, 0.35, 0.0]], 8),  # nearly parallel axes: 64 rounds
+    ([[0.6, 0.3, 0.1], [0.4, 0.2001, -0.1]], 2048),  # near-singular: a scan
+])
+def test_cell_stride_on_full_size_crops(rows, stride):
+    """The lattice check at 224^2 -> 75^2: the stride it finds, and a
+    class's outputs a cell apart at that stride."""
+    theta = np.asarray(rows, np.float32)
+    assert _cell_stride(theta, (75, 75), 224, 224) == stride
+    _check_classes_keep_cells_apart(theta, (75, 75), 224, 224)
