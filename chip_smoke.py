@@ -11,7 +11,7 @@ Phases, one line or more each; any failure exits non-zero:
    from this checkout (one ``nvcc`` per source, all at once);
 2. the forward kernel against its plain PyTorch version on the card (TF32
    off), ties, NaN, one-row and one-column crops, an upsampled crop and
-   C = 1 and 4 included, with its time, the plain version's, the library
+   C = 1 and 4 and the CLI's batches of 8 and 256 included, with its time, the plain version's, the library
    yardstick's (``F.grid_sample`` over ``F.affine_grid``) and the bound
    (CUDA events, median of 25 calls; profiler device time, L2-warm and
    L2-cold, one device operation per call);
@@ -47,10 +47,25 @@ Phases, one line or more each; any failure exits non-zero:
    K2's forward;
 9. two rotated training steps (ratio 1.0) on the card (``rotated_pallas``)
    against the CPU (``rotated``) from the same weights (batch 4, full
-   width).
+   width);
+10. the training CLI on the card, float32: first the CLI's own 512 ``stn``
+   reference crops rendered by ``render_stn_crops`` (K1's forward, batches
+   of 256) against the plain sampler on the same card tensors; then
+   ``cli.train_localizer.main`` in this process on synthetic data (256
+   scenes, 512 assessor crops rendered by K1's forward, 64 val scenes; one
+   asset world), R-50 224->75, batch 64, 96 iterations in calls of 8, mAP
+   on 2 val batches at every log entry, the assessor pool regenerated in a
+   thread every 16 iterations; K1's launches accounted to the steps, the
+   eval forwards and the crop renders, at least one pool swap, and the log
+   dir served through ``LocalizerInference`` with boxes equal to the CLI's
+   own eval step;
+11. the same CLI for 8 ``--supervised`` iterations (no d theta launch) and
+   16 ``--bf16`` iterations (every crop still K1's float32 kernel); then
+   the bf16 step and the float32 step on phase 5's pools, 3 timed chunks
+   each after a warm-up, alternating, and one traced bf16 chunk.
 
 The line before the last is a JSON object of the six kernels: launches in
-phase 5 (K1) and phase 8 (K2), errors from phases 2, 2b and 7, times and
+phase 10, the CLI (K1), and phase 8 (K2), errors from phases 2, 2b and 7, times and
 bounds at the training batch: ``ms`` per call (CUDA events, host launch
 included), ``device_ms`` (profiler, calls back to back), ``device_cold_ms``
 (L2 flushed before each call) and ``device_in_situ_ms`` (per launch in the
@@ -63,7 +78,9 @@ from __future__ import annotations
 
 import copy
 import functools
+import importlib.util
 import json
+import os
 import statistics
 import subprocess
 import tempfile
@@ -74,11 +91,13 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from loans_tpu_torch.cli import train_localizer
 from loans_tpu_torch.cli.bench_samplers import FLUSH_BYTES, device_events, device_time, fmt_us
+from loans_tpu_torch.data import synthetic
 from loans_tpu_torch.data.device_data import device_chunk_batches
 from loans_tpu_torch.inference.localizer import LocalizerInference, set_precision
 from loans_tpu_torch.ops import _cuda, stn
-from loans_tpu_torch.ops.geometry import Size
+from loans_tpu_torch.ops.geometry import Size, box_to_theta, corners_to_aabb, theta_corners
 from loans_tpu_torch.ops.stn import sample_rotated_kernel, sample_separable, sample_separable_kernel
 from loans_tpu_torch.train import (
     AlternatingConfig,
@@ -87,6 +106,7 @@ from loans_tpu_torch.train import (
     alternating_step,
     checkpoint,
     create_train_state,
+    make_eval_step,
     pooled_step,
 )
 from loans_tpu_torch.utils.registry import build_assessor, build_model
@@ -131,6 +151,11 @@ HUGE_THETA = [[1e30, 0.1, 0.1], [0.2, 0.5, 0]]
 # 2 * d * (INPUT - 1) / 2 px per axis (scale and shift), and these frames
 # step by up to 1.0 between pixels at the rectangles' edges, so the crops
 # may differ by 2 * d * (INPUT - 1) on top of rounding (rois_end_to_end).
+# the stn renders' uint8 crops, K1 against the plain sampler: the two sum
+# in another order, so a float within rounding of a .5 boundary may round to
+# the other uint8 value; one step on at most 1e-3 of the pixels, as
+# tests/test_torch_synthetic.py holds the port's renders to JAX's
+RENDER_TOL = {"steps": 1, "share": 1e-3}
 SLICE_TOL = {"theta": 1e-4, "boxes_px": 1e-2, "rois_at_card_theta": 1e-5, "scores": 1e-4}
 # two training steps, card against CPU, float32, TF32 off: cuDNN's and the
 # CPU's convolutions (and their backwards) sum in another order. Relative
@@ -176,6 +201,20 @@ COUNTERS = {"fwd": "launches", "bwd_theta": "launches_bwd_theta", "bwd_images": 
 KERNELS = {"K1": sample_separable_kernel, "K2": sample_rotated_kernel}
 LIBRARIES = {"K1": "separable_sampler", "K2": "rotated_sampler"}
 NO_LAUNCHES = {"fwd": 0, "bwd_theta": 0, "bwd_images": 0}
+# phases 10 and 11: the training CLI at full width (R-50 224->75, batch 64)
+# on synthetic data, as a user runs it on one card
+# 96 iterations, so that the refresh submitted at chunk 2 (iteration 16) has
+# 9 chunk boundaries to be swapped in at: twice the ~4.4 s its 512 crops take
+# to generate alone, even at the step's full rate
+CLI_ITERATIONS, CLI_EVAL_BATCHES = 96, 2
+CLI_ARGV = [
+    "synthetic:256", "synthetic:512", "synthetic:64", "--batch-size", str(TRAIN_BATCH),
+    "--n-layers", "50", "--target-size", str(INPUT), str(INPUT), "--crop-size", str(CROP), str(CROP),
+    "--iterations", str(CLI_ITERATIONS), "--steps-per-call", str(STEPS_PER_CALL),
+    "--log-interval", str(STEPS_PER_CALL), "--snapshot-interval", str(CLI_ITERATIONS),
+    "--eval-batches", str(CLI_EVAL_BATCHES), "--assessor-pipeline", "stn", "--assessor-refresh", "16",
+    "--synthetic-assets", "16", "--device", DEVICE,
+]
 
 
 def check(ok: bool, what: str) -> None:
@@ -311,7 +350,8 @@ def environment() -> str:
         [_cuda.nvcc_path(), "--version"], capture_output=True, text=True, check=True
     ).stdout.strip().splitlines()[-1]
     print(f"env: torch {torch.__version__}, CUDA {torch.version.cuda}, nvcc {nvcc}, "
-          f"device {torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
+          f"device {torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}; "
+          + ", ".join(f"{m} {'installed' if importlib.util.find_spec(m) else 'absent'}" for m in ("PIL", "cv2")))
     start = time.perf_counter()
     _cuda.build_all()
     for name in _cuda.SIGNATURES:
@@ -442,6 +482,11 @@ def kernel_against_plain(card: str) -> dict:
     for c in (1, 4):  # not only the three channels of the main path
         imgs = rng.uniform(size=(4, INPUT, INPUT, c)).astype(np.float32)
         errs.append(compare(f"C={c}", imgs, axis_aligned_theta(rng, 4), out)[0])
+    # the other batches of the CLI's path: served batches of 8 frames and
+    # the stn pipeline's renders of RENDER_BATCH crops
+    for n in (8, synthetic.RENDER_BATCH):
+        imgs = rng.uniform(size=(n, INPUT, INPUT, 3)).astype(np.float32)
+        errs.append(compare(f"N={n} {INPUT}^2->{CROP}^2", imgs, axis_aligned_theta(rng, n), out)[0])
     return {"max_abs_err": max(errs), "times": times}
 
 
@@ -1046,6 +1091,187 @@ def step_against_cpu(pools: dict, manifest: dict = MANIFEST, samplers: dict | No
     return {name: v for name, (_, v) in diffs.items()}
 
 
+# -- phases 10 and 11 ---------------------------------------------------------
+def cli_run(tag: str, argv: list[str], card: str) -> dict:
+    """``train_localizer.main(argv)`` in this process with every launch
+    count at 0; checks the log, the launches of each kind, and serves the
+    log dir. Returns the launches, the log, and the accounting."""
+    args = train_localizer.get_parser().parse_args(argv)
+    iterations = args.iterations
+    with tempfile.TemporaryDirectory() as tmp:
+        torch.cuda.synchronize()
+        reset_launches()
+        synthetic.render_stn_crops.batches = 0
+        device_chunk_batches.swaps = 0
+        start = time.perf_counter()
+        log_dir = train_localizer.main(argv + ["--log-dir", tmp])
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - start
+        launches = read_launches()
+        renders, swaps = synthetic.render_stn_crops.batches, device_chunk_batches.swaps
+        log = MetricsLog.read(log_dir)
+        check(len(log) == iterations // args.log_interval, f"{tag}: {len(log)} log entries")
+        losses = ["loss_localizer"] + ([] if args.supervised else ["loss_dis"])
+        for e in log:
+            check(all(np.isfinite(e[k]) for k in losses + ["mean_iou", "map"]), f"{tag}: finite: {e}")
+        n_val = train_localizer._synthetic_n(args.val_file, 64)
+        n_val_batches = min(args.eval_batches, n_val // max(args.batch_size // 2, 1))
+        evals = len(log) * n_val_batches
+        steps = 0 if args.supervised else iterations  # supervised steps do not crop
+        check(launches["K1"]["fwd"] == steps + evals + renders,
+              f"{tag}: K1 forward launches {launches['K1']['fwd']} != {steps} steps + {evals} eval "
+              f"forwards + {renders} render batches")
+        check(launches["K1"]["bwd_theta"] == steps and launches["K1"]["bwd_images"] == 0,
+              f"{tag}: K1 launches {launches['K1']} for {steps} alternating steps")
+        check(launches["K2"] == NO_LAUNCHES, f"{tag}: K2 launches {launches['K2']}")
+        snaps = sorted(os.listdir(log_dir))
+        want = {"manifest.json", "log", f"Localizer_{iterations}.pt"}
+        if not args.supervised:
+            want.add(f"ResnetAssessor_{iterations}.pt")
+        check(want <= set(snaps), f"{tag}: the log dir holds {snaps}")
+        for e in log:
+            print(f"{tag}: iteration {int(e['iteration'])} images_per_sec {e['images_per_sec']:.1f} "
+                  + " ".join(f"{k} {e[k]:.5f}" for k in losses + ["mean_iou", "map"]))
+        print(f"{tag}: {iterations} iterations in {wall_s:.2f} s of wall time (data generation included); "
+              f"K1 launches {launches['K1']}: forward = {steps} steps + {evals} eval forwards "
+              f"+ {renders} render batches of {synthetic.RENDER_BATCH}; pool swaps {swaps}; log dir {snaps}")
+        served = serve_cli_log_dir(tag, log_dir, args)
+    rates = [e["images_per_sec"] for e in log[1:] or log]
+    return {"launches": launches["K1"], "swaps": swaps, "log": log, "served": served,
+            "images_per_s": statistics.median(rates)}
+
+
+def render_against_plain(argv: list[str]) -> None:
+    """The CLI's own reference pool of ``--assessor-pipeline stn`` (its
+    scenes and boxes: the same seed, size and asset world) rendered by
+    ``render_stn_crops`` on the card, K1's forward in batches of
+    ``RENDER_BATCH``, against the plain sampler on the same card tensors:
+    the float crops at K1_TOL, the uint8 crops within RENDER_TOL. Before
+    the counted run, so these launches are not the path's."""
+    args = train_localizer.get_parser().parse_args(argv)
+    img, crop = tuple(args.target_size), tuple(args.crop_size)
+    n = train_localizer._synthetic_n(args.reference_file, 1024)
+    triples = synthetic.assessor_triples(
+        n, output_size=crop, image_size=img, seed=args.seed + 1,
+        low_iou_fraction=args.assessor_low_iou, **train_localizer.build_asset_kw(args))
+    got = np.stack(synthetic.render_stn_crops(triples, crop, device=DEVICE)).astype(np.int16)
+    want, err = [], 0.0
+    for start in range(0, n, synthetic.RENDER_BATCH):  # the renders' batches, unpadded
+        part = triples[start : start + synthetic.RENDER_BATCH]
+        scenes = torch.from_numpy(np.stack([t[0] for t in part])).to(DEVICE).float() / 255.0
+        size = Size(*part[0][0].shape[:2])
+        theta = box_to_theta(torch.from_numpy(np.stack([t[1] for t in part])).to(DEVICE), size)
+        plain = sample_separable(scenes, theta, Size(*crop))
+        err = max(err, max_err(sample_separable_kernel(scenes, theta, Size(*crop)), plain))
+        want.append(torch.clip(torch.round(plain * 255.0), 0, 255).to(torch.uint8).cpu().numpy())
+    diff = np.abs(got - np.concatenate(want).astype(np.int16))
+    share = float((diff > 0).mean())
+    check(err <= K1_TOL, f"cli renders: K1 against the plain sampler max abs err {err} > {K1_TOL}")
+    check(int(diff.max()) <= RENDER_TOL["steps"] and share <= RENDER_TOL["share"],
+          f"cli renders: uint8 crops differ by up to {int(diff.max())} on {share:.2e} of the pixels")
+    print(f"cli renders: the CLI's {n} stn crops ({img[0]}^2->{crop[0]}^2, batches of "
+          f"{synthetic.RENDER_BATCH}) through render_stn_crops (K1) against the plain sampler on the "
+          f"same card tensors: floats max abs err {err:.3e} (tol {K1_TOL}), uint8 max diff "
+          f"{int(diff.max())} on {share:.2e} of the pixels (tol {RENDER_TOL['steps']} step on "
+          f"{RENDER_TOL['share']:g})")
+
+
+def serve_cli_log_dir(tag: str, log_dir: str, args) -> float:
+    """Serve the CLI's last snapshot through ``LocalizerInference`` on the
+    card and hold its boxes against the CLI's own eval step
+    (``make_eval_step``) on the same snapshot and val frames."""
+    val = synthetic.SyntheticLocalizerDataset(
+        8, image_size=tuple(args.target_size), seed=args.seed + 2, labeled=True, output_dtype="uint8",
+        **train_localizer.build_asset_kw(args))
+    frames = np.stack([val.items[i][0] for i in range(len(val))])
+    inf = LocalizerInference(log_dir, device=DEVICE, use_assessor=True, score_threshold=0.0)
+    boxes, rois, scores, _ = inf.localize_batch(frames.astype(np.float32) / 255.0)
+    manifest = checkpoint.load_manifest(log_dir)
+    loc = build_model("Localizer", **manifest["localizer"]["kwargs"])
+    snap = checkpoint.list_snapshots(log_dir, "Localizer_")[-1][1]
+    loc.load_state_dict(checkpoint.load_params(snap))
+    state = create_train_state(loc.to(DEVICE))
+    theta = make_eval_step()(state, torch.from_numpy(frames).to(DEVICE))
+    want = corners_to_aabb(theta_corners(theta), Size(*args.target_size), clip=True).cpu().numpy()
+    err = float(np.abs(boxes[:, 0] - want).max())
+    check(np.isfinite(boxes).all() and np.isfinite(scores).all(), f"{tag}: served boxes finite")
+    check(err <= SLICE_TOL["boxes_px"], f"{tag}: served boxes differ from the eval step's by {err} px")
+    print(f"{tag}: served {os.path.basename(snap)} through LocalizerInference on {DEVICE}: 8 val frames, "
+          f"boxes against the CLI's eval step max {err:.3e} px (tol {SLICE_TOL['boxes_px']:g}), "
+          f"mean score {float(np.mean(scores)):.4f}")
+    return err
+
+
+def cli_phases(card: str, f32_step_rate: float) -> dict:
+    """Phase 10 (float32, with the pool refresh) and phase 11
+    (``--supervised``, ``--bf16``, and the bf16 step timed beside the
+    float32 one)."""
+    render_against_plain(CLI_ARGV)
+    f32 = cli_run("cli", CLI_ARGV, card)
+    check(f32["swaps"] >= 1, f"cli: no assessor pool swap in {CLI_ITERATIONS} iterations")
+    rates = ", ".join(f"{e['images_per_sec']:.1f}" for e in f32["log"][1:])
+    print(f"cli: images/s at batch {TRAIN_BATCH}, float32, log entries after the first (each one interval "
+          f"of {STEPS_PER_CALL} steps with the previous entry's eval; a smoke value): {rates} "
+          f"(median {f32['images_per_s']:.1f}) ({card})")
+    short = ["--iterations", "8", "--snapshot-interval", "8", "--supervised"]
+    cli_run("cli supervised", CLI_ARGV + short, card)
+    bf16 = cli_run("cli bf16", CLI_ARGV + ["--iterations", "16", "--snapshot-interval", "16", "--bf16"], card)
+    print(f"cli bf16: images/s at batch {TRAIN_BATCH} {bf16['images_per_s']:.1f} (the one interval after the "
+          f"first, a smoke value) ({card})")
+    bf16_step(card, f32_step_rate)
+    return f32
+
+
+def bf16_step(card: str, f32_step_rate: float) -> None:
+    """The ``--bf16`` step (convolutions and BatchNorm outputs in bfloat16)
+    and the float32 step on phase 5's pools, each after a warm-up chunk:
+    images/s of ``TIMED_CHUNKS`` chunks of ``STEPS_PER_CALL`` steps each,
+    the two alternating, median; then one traced bf16 chunk: where its
+    device time goes, and its idle share."""
+    kwargs = MANIFEST["localizer"]["kwargs"]
+    config = AlternatingConfig(image_size=Size(INPUT, INPUT))
+    step_fn = functools.partial(pooled_step, steps_per_call=STEPS_PER_CALL, config=config)
+    pools = training_pools()
+    runs = {}
+    for name, dtype in {"float32": torch.float32, "bf16": torch.bfloat16}.items():
+        torch.manual_seed(SEED)
+        loc = build_model("Localizer", **kwargs, dtype=dtype, norm_dtype=dtype).to(DEVICE)
+        ass = build_model("ResnetAssessor", in_size=loc.out_size, dtype=dtype).to(DEVICE)
+        runs[name] = {
+            "states": (create_train_state(loc, LR), create_train_state(ass, LR)),
+            "chunks": device_chunk_batches(pools, TRAIN_BATCH, STEPS_PER_CALL, seed=SEED, device=DEVICE),
+            "generator": torch.Generator(device=DEVICE).manual_seed(SEED),
+            "rates": [],
+        }
+
+    def chunk(run) -> float:
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        _, _, metrics = step_fn(*run["states"], next(run["chunks"]), run["generator"])
+        check(np.isfinite(float(metrics["loss_localizer"])), "bf16 step: loss finite")
+        torch.cuda.synchronize()
+        return STEPS_PER_CALL * TRAIN_BATCH / (time.perf_counter() - start)
+
+    for run in runs.values():
+        chunk(run)  # warm-up
+    for _ in range(TIMED_CHUNKS):
+        for run in runs.values():
+            run["rates"].append(chunk(run))
+    med = {name: statistics.median(run["rates"]) for name, run in runs.items()}
+    for name, run in runs.items():
+        print(f"cli bf16: {name} step images/s at batch {TRAIN_BATCH}, {TIMED_CHUNKS} chunks of "
+              f"{STEPS_PER_CALL} after a warm-up (phase 5's pools, the two alternating): "
+              f"{', '.join(f'{r:.1f}' for r in run['rates'])} (median {med[name]:.1f}) ({card})")
+    print(f"cli bf16: bf16 step {med['bf16']:.1f} against float32 {med['float32']:.1f} images/s "
+          f"({med['bf16'] / med['float32']:.2f}x; phase 5's float32 Trainer median {f32_step_rate:.1f}) ({card})")
+    print("cli bf16: one traced chunk of the bf16 step (phase 5's pools, after the timed chunks):")
+    run = runs["bf16"]
+    in_situ = profile_chunk(*run["states"], next(run["chunks"]), step_fn, run["generator"], card)
+    for kernel in ("separable_sampler_fwd", "separable_sampler_bwd_theta"):
+        us, count = in_situ.get(kernel, (None, 0))
+        print(f"cli bf16: in the traced chunk, {kernel} {fmt_us(us)} device time per launch ({count} launches)")
+
+
 def kernel_entry(name: str, source: str, replaces: str, launches: int, err: float, t: dict,
                  in_situ: dict) -> dict:
     return {
@@ -1087,8 +1313,9 @@ def main() -> None:
     k2_train = train_slice(pools, card, with_kwargs(**ROTATED_KWARGS))
     step_against_cpu(pools, with_kwargs(rotation_dropout_ratio=1.0),
                      samplers={DEVICE: "rotated_pallas", "cpu": "rotated"})
+    cli = cli_phases(card, k1_train["images_per_s"])
     k1_src, k2_src = "separable_sampler.cu", "rotated_sampler.cu"
-    launches1, launches2 = k1_train["launches"], k2_train["launches"]
+    launches1, launches2 = cli["launches"], k2_train["launches"]
     in_situ = {**k1_train["device_in_situ_ms"], **k2_train["device_in_situ_ms"]}
     print(json.dumps({"kernels": [
         kernel_entry("separable_sampler_fwd", k1_src, "loans_tpu/ops/stn.py:421", launches1["fwd"],

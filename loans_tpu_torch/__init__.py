@@ -1,4 +1,4 @@
-"""loans_tpu_torch — the Localizer-Assessor Networks serving path in PyTorch.
+"""loans_tpu_torch — the Localizer-Assessor Networks in PyTorch.
 
 A port of ``loans_tpu`` (JAX/Pallas) to PyTorch and CUDA on NVIDIA Hopper.
 The sub-layout mirrors ``loans_tpu`` so each module's counterpart is found
@@ -12,7 +12,10 @@ under the same path:
 * ``train.checkpoint``, ``utils.registry``: log-dir manifests and
   ``<Name>_<iter>.pt`` snapshots;
 * ``inference.localizer``: ``LocalizerInference``;
-* ``cli.image_inference``: the image CLI.
+* ``data``, ``evaluation``, ``train``: the synthetic world without Pillow,
+  device pools, in-training mAP, the steps and the trainer;
+* ``cli.image_inference``, ``cli.train_localizer``: the image and training
+  CLIs.
 
 Public boundaries keep the JAX package's conventions: images are NHWC
 float in [0, 1] RGB, theta is (N, 2, 3), corners are [tl, tr, bl, br] and

@@ -1,1 +1,3 @@
-"""Device-resident training data (counterpart of ``loans_tpu.data``)."""
+"""Training data: the synthetic world (``synthetic``, over ``image_ops``),
+device-resident pools (``device_data``) and on-device augmentation
+(``device_augment``) (counterpart of ``loans_tpu.data``)."""

@@ -11,7 +11,8 @@ seeds and epoch permutations.
 
 from __future__ import annotations
 
-from typing import Any
+from concurrent.futures import Future, ThreadPoolExecutor
+from typing import Callable
 
 import numpy as np
 import torch
@@ -80,7 +81,7 @@ def device_chunk_batches(
     steps_per_call: int,
     seed: int = 0,
     device: str | torch.device = "cuda",
-    refresh: dict[str, tuple[Any, int]] | None = None,
+    refresh: dict[str, tuple[Callable[[int], dict[str, np.ndarray]], int]] | None = None,
 ):
     """Yield ``{'pools', 'idx'}`` chunks for ``train.steps.pooled_step``.
 
@@ -92,27 +93,77 @@ def device_chunk_batches(
     as the JAX package draws them. Host->device traffic per K training
     iterations is the index tensors only.
 
-    ``refresh`` (the assessor-refresh pool swap) is not ported yet.
+    ``refresh`` maps a group name to ``(factory, every)``: at every
+    ``every``-th chunk after chunk 0, one worker thread calls
+    ``factory(generation) -> dict of host arrays`` (generation 1, 2, ...),
+    unless a call for the group is still running. At the first chunk after
+    it returns, the new pool replaces the group's, and its sampler restarts
+    with seed ``seed + j + 7919 * generation``. Training does not wait for
+    the factory; a factory that launches on the card must finish its own
+    stream's work before it returns (``data.synthetic.render_stn_crops``
+    does). Each swap adds one to ``device_chunk_batches.swaps``. A factory
+    that raises raises from the chunk that would have swapped its pool, or
+    from closing the generator, which waits for a running call.
     """
-    if refresh:
-        raise NotImplementedError(
-            "device_chunk_batches(refresh=...) is not ported: the assessor "
-            "pool refresh is ROADMAP.md Queue 1 item 8 (pool refresh)"
-        )
     device = torch.device(device)
-    pools = {
-        g: {k: torch.from_numpy(np.ascontiguousarray(a)).to(device) for k, a in tree.items()}
-        for g, tree in groups.items()
-    }
-    samplers = {
-        g: IndexSampler(len(next(iter(tree.values()))), batch_size, seed=seed + j).epochs()
-        for j, (g, tree) in enumerate(groups.items())
-    }
-    while True:
-        idx = {
-            g: torch.from_numpy(
-                np.stack([next(samplers[g]) for _ in range(steps_per_call)]).astype(np.int64)
-            ).to(device)
-            for g in groups
-        }
-        yield {"pools": pools, "idx": idx}
+
+    def upload(tree):
+        return {k: torch.from_numpy(np.ascontiguousarray(a)).to(device) for k, a in tree.items()}
+
+    pools = {g: upload(tree) for g, tree in groups.items()}
+    seeds = {g: seed + j for j, g in enumerate(groups)}
+    samplers = {g: IndexSampler(_pool_size(tree), batch_size, seed=seeds[g]).epochs()
+                for g, tree in groups.items()}
+    executor = ThreadPoolExecutor(max_workers=1) if refresh else None
+    futures: dict[str, Future] = {}
+    generation = {g: 0 for g in groups}
+    chunk_i = 0
+    try:
+        while True:
+            for g, (factory, every) in (refresh or {}).items():
+                if g in futures and futures[g].done():
+                    tree = futures.pop(g).result()
+                    pools[g] = upload(tree)
+                    generation[g] += 1
+                    samplers[g] = IndexSampler(
+                        _pool_size(tree), batch_size, seed=seeds[g] + 7919 * generation[g]
+                    ).epochs()
+                    device_chunk_batches.swaps += 1
+                    print(f"refresh: pool {g!r} generation {generation[g]} swapped in at chunk {chunk_i}")
+                elif g not in futures and every > 0 and chunk_i > 0 and chunk_i % every == 0:
+                    futures[g] = executor.submit(factory, generation[g] + 1)
+            idx = {
+                g: torch.from_numpy(
+                    np.stack([next(samplers[g]) for _ in range(steps_per_call)]).astype(np.int64)
+                ).to(device)
+                for g in groups
+            }
+            chunk_i += 1
+            yield {"pools": pools, "idx": idx}
+    finally:
+        if executor is not None:
+            executor.shutdown(wait=True)
+            for future in futures.values():
+                future.result()  # a refresh that failed after the last swap raises here
+
+
+device_chunk_batches.swaps = 0
+
+
+def _pool_size(tree: dict[str, np.ndarray]) -> int:
+    return len(next(iter(tree.values())))
+
+
+def device_eval_batches(dataset, batch_size: int, device: str | torch.device = "cuda") -> list:
+    """An eval set as a list of ``(images on the device, gt boxes, ...)``
+    batches: the images are uploaded once and stay on the device across
+    every eval sweep; the rest stays on the host, where the ragged ground
+    truth is matched. A last partial batch is dropped."""
+    fields = materialize(dataset)
+    n = (len(fields[0]) // batch_size) * batch_size
+    batches = []
+    for start in range(0, n, batch_size):
+        sl = slice(start, start + batch_size)
+        images = torch.from_numpy(np.ascontiguousarray(fields[0][sl])).to(device)
+        batches.append((images,) + tuple(f[sl] for f in fields[1:]))
+    return batches

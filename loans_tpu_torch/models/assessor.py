@@ -14,17 +14,16 @@ for a crop size ``in_size`` (the localizer's ``out_size``).
 
 from __future__ import annotations
 
-import math
-
 import torch
 import torch.nn.functional as F
 from torch import nn
 
+from loans_tpu_torch.models.resnet import Conv2d, set_dtypes
 from loans_tpu_torch.ops.geometry import Size
 
 
-def _conv(in_ch: int, out_ch: int, kernel: int, stride: int, pad: int) -> nn.Conv2d:
-    return nn.Conv2d(in_ch, out_ch, kernel, stride=stride, padding=pad, bias=False)
+def _conv(in_ch: int, out_ch: int, kernel: int, stride: int, pad: int) -> Conv2d:
+    return Conv2d(in_ch, out_ch, kernel, stride=stride, padding=pad, bias=False)
 
 
 def _down(size: int) -> int:
@@ -86,6 +85,7 @@ class ResnetAssessor(nn.Module):
         output_dim: int = 1,
         in_size: Size = Size(75, 75),
         in_ch: int = 3,
+        dtype: torch.dtype = torch.float32,
     ):
         super().__init__()
         self.DownResBlock1_0 = DownResBlock1(in_ch, ch)
@@ -95,6 +95,7 @@ class ResnetAssessor(nn.Module):
         h, w = (_down(_down(s)) for s in in_size)
         self.fan_in = h * w * ch
         self.Dense_0 = nn.Linear(self.fan_in, output_dim, bias=False)
+        set_dtypes(self, dtype, dtype)
 
     def forward(self, x):
         h = self.DownResBlock1_0(x.permute(0, 3, 1, 2))
@@ -102,5 +103,7 @@ class ResnetAssessor(nn.Module):
         h = self.DownResBlock3_0(h)
         h = self.DownResBlock3_1(h)
         h = F.relu(h).permute(0, 2, 3, 1).flatten(1)  # (h, w, c) order
-        h = h * (1.0 / math.sqrt(self.fan_in))
-        return torch.sigmoid(self.Dense_0(h).float())
+        # as JAX: the fan-in, its root and reciprocal, and the head in the features' dtype
+        fan_in = torch.tensor(float(self.fan_in), dtype=h.dtype, device=h.device)
+        h = F.linear(h * (1.0 / torch.sqrt(fan_in)), self.Dense_0.weight.to(h.dtype))
+        return torch.sigmoid(h.float())

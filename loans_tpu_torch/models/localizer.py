@@ -23,7 +23,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from loans_tpu_torch.models.resnet import BasicStage, BottleNeckStage, ResNet
+from loans_tpu_torch.models.resnet import BasicStage, BottleNeckStage, ResNet, set_dtypes
 from loans_tpu_torch.ops.geometry import Size
 from loans_tpu_torch.ops.rotation_dropout import rotation_dropout
 from loans_tpu_torch.ops.stn import spatial_transform
@@ -45,6 +45,13 @@ class Localizer(nn.Module):
       sampler: 'auto' | 'separable' | 'pallas' | 'rotated' |
         'rotated_pallas' | 'general' (see ``ops.stn.spatial_transform``).
       transform_rois_to_grayscale: collapse crops to 1 channel.
+      dtype: the backbone's compute dtype (float32 or bfloat16);
+        parameters stay float32.
+      norm_dtype: the dtype of the BatchNorms' outputs (they compute in
+        float32).
+
+    The head, theta and the crop stay float32 whatever ``dtype``: the
+    crop reads the un-cast images, so K1 remains a float32 kernel.
     """
 
     def __init__(
@@ -55,6 +62,8 @@ class Localizer(nn.Module):
         rotation_dropout_ratio: float = 0.0,
         sampler: str = "auto",
         transform_rois_to_grayscale: bool = False,
+        dtype: torch.dtype = torch.float32,
+        norm_dtype: torch.dtype = torch.float32,
     ):
         super().__init__()
         self.out_size = Size(*out_size)
@@ -76,6 +85,7 @@ class Localizer(nn.Module):
         self.register_buffer(
             "mean", torch.tensor(IMAGENET_MEAN_RGB), persistent=False
         )
+        set_dtypes(self, dtype, norm_dtype)
 
     def _extra_stage(self, ch: int) -> nn.Module:
         if self.n_layers in (18, 34):
@@ -90,6 +100,29 @@ class Localizer(nn.Module):
             return "general"
         return "pallas" if images.is_cuda else "separable"
 
+    def predict_theta(
+        self,
+        images: torch.Tensor,
+        generator: torch.Generator | None = None,
+    ) -> torch.Tensor:
+        """The (N, 2, 3) affine params of ``images`` (N, H, W, 3) RGB in
+        [0, 1], NHWC, without the crop; ``generator`` draws rotation
+        dropout in train mode at 0 < ratio < 1."""
+        x = images * 255.0 - self.mean.to(images.dtype)
+        h = self.feature_extractor(x.permute(0, 3, 1, 2))
+        if hasattr(self, "res6"):
+            h = self.res6(h)
+        if hasattr(self, "res7"):
+            h = self.res7(h)
+        h = h.mean(dim=(2, 3))  # global average pool
+        theta = self.param_predictor(h.float()).reshape(-1, 2, 3)
+        return rotation_dropout(
+            theta,
+            self.rotation_dropout_ratio,
+            train=self.training,
+            generator=generator,
+        )
+
     def forward(
         self,
         images: torch.Tensor,
@@ -103,20 +136,7 @@ class Localizer(nn.Module):
           (rois, theta): (N, out_h, out_w, C) crops of the *unnormalized*
           images, and the (N, 2, 3) affine params.
         """
-        x = images * 255.0 - self.mean.to(images.dtype)
-        h = self.feature_extractor(x.permute(0, 3, 1, 2))
-        if hasattr(self, "res6"):
-            h = self.res6(h)
-        if hasattr(self, "res7"):
-            h = self.res7(h)
-        h = h.mean(dim=(2, 3))  # global average pool
-        theta = self.param_predictor(h.float()).reshape(-1, 2, 3)
-        theta = rotation_dropout(
-            theta,
-            self.rotation_dropout_ratio,
-            train=self.training,
-            generator=generator,
-        )
+        theta = self.predict_theta(images, generator)
         rois = spatial_transform(
             images, theta, self.out_size, method=self.sampler_method(images)
         )

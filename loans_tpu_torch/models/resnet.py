@@ -46,17 +46,45 @@ _SMALL = (32, 44, 56, 110)
 _BOTTLENECK = (19, 50, 101, 152)
 
 
+class Conv2d(nn.Conv2d):
+    """``nn.Conv2d`` that can compute in another dtype than its parameters'
+    (``set_dtypes``): then its input and its float32 weight are cast to
+    ``compute_dtype`` for the call, as flax's ``nn.Conv(dtype=...)`` casts
+    them, and the output stays in it. Unset, it is ``nn.Conv2d``."""
+
+    compute_dtype: torch.dtype | None = None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.compute_dtype
+        if dt is None:
+            return super().forward(x)
+        bias = None if self.bias is None else self.bias.to(dt)
+        return self._conv_forward(x.to(dt), self.weight.to(dt), bias)
+
+
 class BatchNorm2d(nn.BatchNorm2d):
-    """``nn.BatchNorm2d`` with flax's training statistics.
+    """``nn.BatchNorm2d`` with flax's training statistics and dtypes.
 
     Train mode normalizes with the biased batch variance, as
     ``nn.BatchNorm2d`` does, and also folds the *biased* variance into
     ``running_var``, as flax's ``BatchNorm`` does (``nn.BatchNorm2d``
     folds the unbiased one, n/(n-1) larger for n = batch*H*W values per
     channel). Eval mode is ``nn.BatchNorm2d``'s.
+
+    As flax's, it computes in float32 at least: a bfloat16 input is
+    promoted. With ``out_dtype`` set (the ``norm_dtype`` of
+    ``set_dtypes``) the output is cast to it.
     """
 
+    out_dtype: torch.dtype | None = None
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if x.dtype in (torch.bfloat16, torch.float16):
+            x = x.float()
+        y = self._normalize(x)
+        return y if self.out_dtype is None else y.to(self.out_dtype)
+
+    def _normalize(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training:
             return super().forward(x)
         n = x.numel() // x.shape[1]
@@ -71,6 +99,22 @@ class BatchNorm2d(nn.BatchNorm2d):
             self.running_var.mul_(1.0 - self.momentum).add_(var_part, alpha=(n - 1) / n)
             self.num_batches_tracked.add_(1)
         return y
+
+
+def set_dtypes(module: nn.Module, dtype: torch.dtype, norm_dtype: torch.dtype) -> nn.Module:
+    """Run ``module``'s convolutions in ``dtype`` and give its BatchNorms
+    outputs in ``norm_dtype`` (the JAX package's ``dtype`` and
+    ``norm_dtype`` module fields); parameters and statistics keep their
+    dtype. Both float32 leave the modules as they are, so a float32 model
+    can still be moved to another dtype whole (``.double()``)."""
+    if dtype == torch.float32 and norm_dtype == torch.float32:
+        return module
+    for m in module.modules():
+        if isinstance(m, Conv2d):
+            m.compute_dtype = dtype
+        elif isinstance(m, BatchNorm2d):
+            m.out_dtype = norm_dtype
+    return module
 
 
 def batch_norm(ch: int) -> BatchNorm2d:
@@ -91,7 +135,7 @@ class ConvBN(nn.Module):
 
     def __init__(self, in_ch: int, features: int, kernel: int, stride: int = 1, pad: int = 0):
         super().__init__()
-        self.Conv_0 = nn.Conv2d(
+        self.Conv_0 = Conv2d(
             in_ch, features, kernel, stride=stride, padding=pad, bias=False
         )
         self.BatchNorm_0 = batch_norm(features)
@@ -212,7 +256,7 @@ class ResNet(nn.Module):
         super().__init__()
         self.n_layers = n_layers
         stem_ch = 16 if n_layers in _SMALL else 64
-        self.Conv_0 = nn.Conv2d(3, stem_ch, 7, stride=2, padding=3, bias=False)
+        self.Conv_0 = Conv2d(3, stem_ch, 7, stride=2, padding=3, bias=False)
         self.BatchNorm_0 = batch_norm(stem_ch)
         in_ch = stem_ch
         blocks = BLOCK_CONFIGS[n_layers]

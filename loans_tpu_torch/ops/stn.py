@@ -42,6 +42,7 @@ Coordinate convention (chainer / cuDNN SpatialTf):
 from __future__ import annotations
 
 import functools
+import threading
 from typing import Callable, NamedTuple
 
 import torch
@@ -51,6 +52,7 @@ from loans_tpu_torch.ops.geometry import Size
 
 # The kernels index inside an image and inside a crop in 32 bits.
 _MAX_IMAGE_ELEMENTS = 2**31 - 1
+_COUNT_LOCK = threading.Lock()
 
 
 def _positions(out_dim: int, device) -> torch.Tensor:
@@ -417,11 +419,13 @@ def _check_offsets(what: str, image: tuple[int, int, int], crop: tuple[int, int,
 
 def _launch(library: str, entry: str, owner: Callable, counter: str, *args) -> None:
     """Launch ``entry`` of ``csrc/<library>.cu`` on the current stream,
-    raise on a CUDA error, then add one to ``owner.<counter>``."""
+    raise on a CUDA error, then add one to ``owner.<counter>`` (under a
+    lock: a data-refresh thread launches beside the training thread)."""
     lib = _cuda.load_library(library)
     err = getattr(lib, entry)(*args)
     _cuda.check(lib, err, entry)
-    setattr(owner, counter, getattr(owner, counter) + 1)
+    with _COUNT_LOCK:
+        setattr(owner, counter, getattr(owner, counter) + 1)
 
 
 def _crop_kernel(

@@ -6,12 +6,14 @@ from loans_tpu_torch.train.checkpoint import (
     list_snapshots,
     load_manifest,
     load_params,
+    restore_params,
     restore_state,
     save_manifest,
     save_params,
     save_state,
     snapshot_name,
 )
+from loans_tpu_torch.train.control import CommandChannel, apply_commands
 from loans_tpu_torch.train.logger import MetricsLog
 from loans_tpu_torch.train.loop import (
     Hook,
@@ -30,17 +32,20 @@ from loans_tpu_torch.train.steps import (
     make_eval_step,
     mse,
     pooled_step,
+    supervised_step,
     to_float01,
 )
 
 __all__ = [
     "AdamAmsgrad",
     "AlternatingConfig",
+    "CommandChannel",
     "Hook",
     "MetricsLog",
     "TrainState",
     "Trainer",
     "alternating_step",
+    "apply_commands",
     "create_train_state",
     "list_snapshots",
     "load_manifest",
@@ -49,11 +54,13 @@ __all__ = [
     "mse",
     "multiplicative_lr_decay",
     "pooled_step",
+    "restore_params",
     "restore_state",
     "save_manifest",
     "save_params",
     "save_state",
     "snapshot_name",
+    "supervised_step",
     "to_float01",
     "two_state_lr_shifter",
 ]

@@ -15,7 +15,7 @@ from __future__ import annotations
 import json
 import os
 import re
-from typing import Any
+from typing import Any, Iterable
 
 import numpy as np
 import torch
@@ -68,6 +68,27 @@ def restore_state(path: str, state):
     state.optimizer.load_state_dict(payload["optimizer"])
     state.step = int(payload["step"])
     return state
+
+
+def restore_params(path: str, model: torch.nn.Module, skip_prefixes: Iterable[str] = ()) -> list[str]:
+    """Partial restore (port of ``restore_params``, ``loans_tpu/train/
+    checkpoint.py:78-120``): load the snapshot's entries into ``model``
+    where the key and the shape match, and keep ``model``'s own values
+    elsewhere and under ``skip_prefixes`` (module paths, ``.`` or ``/``
+    joined: ``('param_predictor',)`` transfers a backbone and keeps the
+    fresh head). Returns the keys loaded."""
+    loaded = load_params(path, device="cpu")
+    skip = tuple(p.replace("/", ".") for p in skip_prefixes if p)
+    target = model.state_dict()
+    taken = []
+    with torch.no_grad():
+        for key, value in target.items():
+            if any(key == p or key.startswith(p + ".") for p in skip):
+                continue
+            if key in loaded and tuple(loaded[key].shape) == tuple(value.shape):
+                value.copy_(loaded[key].to(value.dtype))
+                taken.append(key)
+    return taken
 
 
 def snapshot_name(model_name: str, iteration: int) -> str:

@@ -6,9 +6,8 @@ intervals; at each log flush the loop waits for the device, so
 ``images_per_sec`` counts finished work. Snapshots go through
 ``train.checkpoint.save_state``. Randomness comes from one explicit
 ``torch.Generator``, passed to every step call, where the JAX package
-splits keys. Runtime control (``train/control.py``: LR shifts, early stop,
-the bbox plotter's switch) is not ported yet, nor the trainer methods it
-calls.
+splits keys. Runtime control (LR shifts, early stop, the bbox plotter's
+switch) comes through ``train.control`` at each step-call boundary.
 """
 
 from __future__ import annotations
@@ -22,6 +21,7 @@ from typing import Any, Callable, Iterable, Iterator
 import torch
 
 from loans_tpu_torch.train import checkpoint
+from loans_tpu_torch.train.control import CommandChannel, apply_commands
 from loans_tpu_torch.train.logger import MetricsLog
 
 
@@ -61,7 +61,8 @@ class Trainer:
         merged into the log entry at each log interval.
       lr_schedule: optional ``iteration -> lr | None``; a float return
         sets both optimizers' learning rate.
-      control: runtime command channel; not ported yet, must be None.
+      control: optional ``train.control.CommandChannel``, drained after
+        every step call.
     """
 
     def __init__(
@@ -79,17 +80,12 @@ class Trainer:
         eval_fn: Callable[["Trainer", int], dict] | None = None,
         lr_schedule: Callable[[int], float | None] | None = None,
         hooks: Iterable[Hook] = (),
-        control=None,
+        control: CommandChannel | None = None,
         snapshot_names: tuple[str, str] = ("Localizer", "ResnetAssessor"),
         keep_snapshots: int = 0,
         print_report: bool = True,
         steps_per_call: int = 1,
     ):
-        if control is not None:
-            raise NotImplementedError(
-                "Trainer(control=...) is not ported: train/control.py is "
-                "ROADMAP.md Queue 1 item 9"
-            )
         self.step_fn = step_fn
         self.loc_state = loc_state
         self.ass_state = ass_state
@@ -102,6 +98,7 @@ class Trainer:
         self.eval_fn = eval_fn
         self.lr_schedule = lr_schedule
         self.hooks = list(hooks)
+        self.control = control
         self.snapshot_names = snapshot_names
         self.keep_snapshots = keep_snapshots
         self.print_report = print_report
@@ -109,9 +106,31 @@ class Trainer:
         self._last_lr_set: float | None = None
         self.log = MetricsLog(log_dir, config=config)
         self.iteration = int(loc_state.step)
+        self.bbox_vis_enabled = True
+        self._stop = False
         self._pending_metrics: list[dict[str, torch.Tensor]] = []
         self._t_interval = time.perf_counter()
         self._images_in_interval = 0
+
+    # -- control surface (train/control.py) -----------------------------------
+    def shift_learning_rate(self, factor: float) -> None:
+        self.set_learning_rate(float(self.loc_state.learning_rate) * factor)
+
+    def set_learning_rate(self, lr: float) -> None:
+        self.loc_state = self.loc_state.with_learning_rate(lr)
+        if self.ass_state is not None:
+            self.ass_state = self.ass_state.with_learning_rate(lr)
+        print(f"learning rate set to {lr:g}")
+
+    def request_stop(self) -> None:
+        self._stop = True
+
+    def enable_bbox_vis(self) -> None:
+        self.bbox_vis_enabled = True
+        for hook in self.hooks:
+            enable = getattr(hook.fn, "enable_send", None)
+            if callable(enable):
+                enable()
 
     # -- main loop ------------------------------------------------------------
     def run(self):
@@ -119,7 +138,7 @@ class Trainer:
         for hook in self.hooks:
             if hook.at_zero and self.iteration == 0:
                 hook.fn(self, 0)
-        while self.iteration < self.max_iterations:
+        while self.iteration < self.max_iterations and not self._stop:
             batch = next(self.batches, None)
             if batch is None:
                 break
@@ -146,6 +165,8 @@ class Trainer:
             for hook in self.hooks:
                 if hook.due_span(prev, self.iteration):
                     hook.fn(self, self.iteration)
+            if self.control is not None:
+                apply_commands(self.control.drain(), self)
         if self._pending_metrics:
             self._flush_log()
         self.save_snapshot()

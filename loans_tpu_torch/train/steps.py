@@ -14,20 +14,22 @@ One step, as ``alternating_step_body`` in the JAX package:
     is frozen.
 
 The JAX step is one jitted XLA program; here it runs eagerly, updating
-both models and their optimizers in place. ``pooled_step`` runs K such
-steps on batches gathered on the device from resident pools.
+both models and their optimizers in place. ``supervised_step`` trains the
+localizer alone on gt boxes, and ``pooled_step`` runs K steps of either on
+batches gathered on the device from resident pools.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any
+from typing import Any, Callable
 
 import torch
 from torch.func import functional_call
 
-from loans_tpu_torch.ops.geometry import Size, theta_corners
-from loans_tpu_torch.ops.losses import direction_loss, out_of_image_loss
+from loans_tpu_torch.data.device_augment import augment_crops
+from loans_tpu_torch.ops.geometry import Size, corners_to_aabb, theta_corners
+from loans_tpu_torch.ops.losses import direction_loss, huber_loss, out_of_image_loss, smooth_iou_loss
 from loans_tpu_torch.train.state import TrainState
 
 
@@ -39,7 +41,8 @@ class AlternatingConfig:
     localizer_target: float = 1.0
     freeze_assessor: bool = False
     image_size: Size = Size(224, 224)
-    # On-device augmentation of the assessor's labeled crops: not ported.
+    # On-device flip/photometric jitter of the assessor's labeled crops
+    # (data/device_augment.py), drawn from the step's generator.
     augment_reference: bool = False
     # EMA decay of the assessor parameters that score the localizer
     # (0 = score with the live parameters, the reference behavior).
@@ -89,21 +92,19 @@ def alternating_step(
       loc_state, ass_state: the localizer's and the assessor's states.
       batch: ``{'real': (N, h, w, c), 'labels': (N, 1), 'unlabeled':
         (N, H, W, 3)}``, uint8 or float in [0, 1], on the models' device.
-      generator: rotation dropout's draw (unused at ratio 0).
+      generator: rotation dropout's draw (unused at ratio 0) and the
+        reference crops' augmentation.
       config: the update's configuration.
 
     Returns:
       (loc_state, ass_state, metrics): metrics are 0-d device tensors
       ``loss_localizer``, ``loss_dis``, ``y_fake_mean``, ``y_real_mean``.
     """
-    if config.augment_reference:
-        raise NotImplementedError(
-            "augment_reference is not ported: data/device_augment.py is "
-            "ROADMAP.md Queue 1 item 7 (augment_reference)"
-        )
     real_images = to_float01(batch["real"])
     labels = batch["labels"]
     unlabeled = to_float01(batch["unlabeled"])
+    if config.augment_reference:
+        real_images = augment_crops(real_images, generator)
 
     loc = loc_state.model.train()
     loc_state.optimizer.zero_grad(set_to_none=True)
@@ -143,6 +144,52 @@ def alternating_step(
     return loc_state, ass_state, metrics
 
 
+def supervised_step(
+    loc_state: TrainState,
+    ass_state: None,
+    batch,
+    generator: torch.Generator | None = None,
+    config: AlternatingConfig = AlternatingConfig(),
+) -> tuple[TrainState, None, dict[str, torch.Tensor]]:
+    """One supervised localizer update on gt boxes (port of
+    ``supervised_step_body``, ``steps.py:273-331``), in place.
+
+    The loss is Huber on the predicted axis-aligned box (``clip=False``)
+    and the gt box, both divided by the larger image side, plus 0.5 times
+    the smooth-IoU loss, plus the direction and out-of-image losses. Only
+    theta is needed, so the crop does not run (XLA drops it from the JAX
+    step for the same reason).
+
+    Args:
+      batch: ``(images (N, H, W, 3), gt_boxes (N, 1, 4) yxyx pixels, ...)``
+        or a dict with ``'images'`` and ``'boxes'``; uint8 or float images.
+      ass_state: unused (the trainer's shape: no assessor).
+
+    Returns:
+      (loc_state, None, metrics): ``loss_localizer``, ``loss/box``,
+      ``loss/iou``.
+    """
+    del ass_state
+    images, gt = (batch["images"], batch["boxes"]) if isinstance(batch, dict) else batch[:2]
+    images = to_float01(images)
+    gt = gt.reshape(images.shape[0], -1)[:, :4]
+    loc = loc_state.model.train()
+    loc_state.optimizer.zero_grad(set_to_none=True)
+    theta = loc.predict_theta(images, generator=generator)
+    corners = theta_corners(theta)
+    boxes = corners_to_aabb(corners, config.image_size, clip=False)
+    scale = float(max(config.image_size.height, config.image_size.width))
+    reg = torch.mean(huber_loss(boxes / scale, gt / scale))
+    iou = smooth_iou_loss(boxes, gt)
+    loss = reg + 0.5 * iou
+    loss = loss + direction_loss(corners, config.image_size)
+    loss = loss + out_of_image_loss(corners)
+    loss.backward()
+    loc_state.apply_gradients()
+    metrics = {"loss_localizer": loss.detach(), "loss/box": reg.detach(), "loss/iou": iou.detach()}
+    return loc_state, None, metrics
+
+
 def gather_batch(chunk: dict[str, Any], t: int) -> dict[str, torch.Tensor]:
     """Step ``t``'s batch of a pooled chunk: every group's pools indexed on
     the device by ``chunk['idx'][group][t]``, merged over the groups (in
@@ -157,15 +204,16 @@ def gather_batch(chunk: dict[str, Any], t: int) -> dict[str, torch.Tensor]:
 
 def pooled_step(
     loc_state: TrainState,
-    ass_state: TrainState,
+    ass_state: TrainState | None,
     chunk: dict[str, Any],
     generator: torch.Generator | None = None,
     steps_per_call: int = 1,
     config: AlternatingConfig = AlternatingConfig(),
-) -> tuple[TrainState, TrainState, dict[str, torch.Tensor]]:
-    """``steps_per_call`` alternating steps on batches gathered on the
-    device from resident pools (port of ``make_pooled_train_step``,
-    ``steps.py:190-247``).
+    body: Callable = alternating_step,
+) -> tuple[TrainState, TrainState | None, dict[str, torch.Tensor]]:
+    """``steps_per_call`` steps of ``body`` (``alternating_step`` or
+    ``supervised_step``) on batches gathered on the device from resident
+    pools (port of ``make_pooled_train_step``, ``steps.py:190-247``).
 
     ``chunk = {'pools': {group: {key: (N, ...) tensor}}, 'idx': {group:
     (K, B) index tensor}}`` with K = ``steps_per_call``, all on the
@@ -181,7 +229,7 @@ def pooled_step(
             )
     history: dict[str, list[torch.Tensor]] = {}
     for t in range(steps_per_call):
-        loc_state, ass_state, metrics = alternating_step(
+        loc_state, ass_state, metrics = body(
             loc_state, ass_state, gather_batch(chunk, t), generator, config
         )
         for key, value in metrics.items():

@@ -1,8 +1,10 @@
 """The PyTorch port stands without JAX: the machines with the card have no
 JAX, flax or ``loans_tpu`` dependencies installed.
 
-A subprocess blocks ``jax``, ``flax`` and ``loans_tpu`` imports, imports
-every module of ``loans_tpu_torch``, serves a tiny log dir on the CPU and
+A subprocess blocks ``jax``, ``flax`` and ``loans_tpu`` imports, and
+``PIL`` and ``cv2``, which the card's machine lacks too; imports every
+module of ``loans_tpu_torch`` (the training CLI and the synthetic world
+among them), generates a tiny synthetic world, serves a tiny log dir on the CPU and
 runs one tiny alternating training step, then one with rotation dropout at
 ratio 1.0 on the plain rotated crop (``sampler="rotated"``).
 It also checks that importing the package never runs ``nvcc`` and that
@@ -29,17 +31,23 @@ class _Spy(_Popen):
         spawned.append(args)
         super().__init__(args, *a, **k)
 subprocess.Popen = _Spy
-for name in ("jax", "jaxlib", "flax", "optax", "loans_tpu"):
+for name in ("jax", "jaxlib", "flax", "optax", "loans_tpu", "PIL", "cv2"):
     sys.modules[name] = None  # any import of them raises ImportError
 
 import importlib, pkgutil, tempfile
 import numpy as np, torch
 import loans_tpu_torch
+import loans_tpu_torch.cli.train_localizer, loans_tpu_torch.data.synthetic
 for info in pkgutil.walk_packages(loans_tpu_torch.__path__, "loans_tpu_torch."):
     importlib.import_module(info.name)
 from loans_tpu_torch.ops import _cuda
 assert _cuda.load_library.cache_info().currsize == 0
 assert not spawned, spawned
+
+from loans_tpu_torch.data.synthetic import SyntheticAssessorDataset, SyntheticLocalizerDataset
+scenes = SyntheticLocalizerDataset(4, image_size=(32, 32), labeled=True, output_dtype="uint8")
+crops = SyntheticAssessorDataset(4, output_size=(8, 8), image_size=(32, 32), output_dtype="uint8")
+assert scenes[0][0].shape == (32, 32, 3) and crops[0][0].shape == (8, 8, 3)
 
 from loans_tpu_torch.inference import LocalizerInference
 from loans_tpu_torch.models import Localizer, ResnetAssessor
@@ -99,7 +107,8 @@ moved = loc.param_predictor.bias.detach() != bias0
 assert moved[[1, 3]].all(), loc.param_predictor.bias  # theta01, theta10 train
 assert sample_rotated_kernel.launches == 0 and sample_rotated_kernel.launches_bwd_theta == 0
 assert not spawned, spawned
-assert not [m for m, v in sys.modules.items() if v is not None and m.split(".")[0] in ("jax", "flax", "loans_tpu")]
+assert not [m for m, v in sys.modules.items()
+            if v is not None and m.split(".")[0] in ("jax", "flax", "loans_tpu", "PIL", "cv2")]
 print("NO_JAX_OK")
 """
 
@@ -114,12 +123,9 @@ def test_port_imports_and_serves_without_jax():
     assert "NO_JAX_OK" in proc.stdout
 
 
-def test_port_sources_import_no_jax():
-    """No module of the port, and not ``chip_smoke.py``, names jax, flax or
-    loans_tpu in an import, even inside a function."""
-    banned = ("jax", "jaxlib", "flax", "optax", "loans_tpu")
+def _imports(paths, banned):
     offenders = []
-    for path in [*PACKAGE.rglob("*.py"), ROOT / "chip_smoke.py"]:
+    for path in paths:
         for node in ast.walk(ast.parse(path.read_text())):
             if isinstance(node, ast.Import):
                 names = [a.name for a in node.names]
@@ -128,4 +134,21 @@ def test_port_sources_import_no_jax():
             else:
                 continue
             offenders += [(path.name, n) for n in names if n.split(".")[0] in banned]
-    assert not offenders, offenders
+    return offenders
+
+
+def test_port_sources_import_no_jax():
+    """No module of the port, and not ``chip_smoke.py``, names jax, flax,
+    loans_tpu or PIL in an import, even inside a function."""
+    banned = ("jax", "jaxlib", "flax", "optax", "loans_tpu", "PIL")
+    assert not _imports([*PACKAGE.rglob("*.py"), ROOT / "chip_smoke.py"], banned)
+
+
+def test_training_cli_path_imports_no_cv2():
+    """The training CLI's path (its data, evaluation, training and model
+    modules, and ``chip_smoke.py``) names no cv2 either; only the image
+    CLI and the serving helpers that draw or resize frames use it."""
+    paths = [PACKAGE / "cli" / "train_localizer.py", ROOT / "chip_smoke.py"]
+    for sub in ("data", "evaluation", "train", "models", "ops"):
+        paths += list((PACKAGE / sub).rglob("*.py"))
+    assert not _imports(paths, ("cv2",))

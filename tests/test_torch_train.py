@@ -63,6 +63,7 @@ from loans_tpu_torch.ops.rotation_dropout import rotation_dropout
 from loans_tpu_torch.train import (
     AdamAmsgrad,
     AlternatingConfig,
+    CommandChannel,
     Hook,
     MetricsLog,
     Trainer,
@@ -434,10 +435,19 @@ def test_assessor_ema_with_delayed_start(weights):
 
 
 def test_augment_reference_is_not_ported(weights):
-    loc, ass = port_states(weights)
-    with pytest.raises(NotImplementedError, match="device_augment"):
-        alternating_step(loc, ass, to_torch(make_batch(np.random.default_rng(3))), None,
-                         AlternatingConfig(image_size=Size(IMG, IMG), augment_reference=True))
+    """``augment_reference`` was refused until ``data/device_augment.py``
+    was ported; now it jitters the assessor's crops only: the localizer's
+    loss is unchanged and the assessor's is not (the augmentation itself
+    is held to JAX in ``test_torch_supervised.py``)."""
+    batch = to_torch(make_batch(np.random.default_rng(3)))
+    metrics = {}
+    for augment in (False, True):
+        loc, ass = port_states(weights)
+        _, _, metrics[augment] = alternating_step(
+            loc, ass, batch, torch.Generator().manual_seed(0),
+            AlternatingConfig(image_size=Size(IMG, IMG), augment_reference=augment))
+    assert float(metrics[True]["loss_localizer"]) == float(metrics[False]["loss_localizer"])
+    assert float(metrics[True]["loss_dis"]) != float(metrics[False]["loss_dis"])
 
 
 def test_eval_step_matches_inference_forward(weights):
@@ -482,8 +492,19 @@ def test_device_chunks_carry_jax_index_streams():
         for g in groups:
             want = np.stack([next(samplers[g]) for _ in range(3)])
             np.testing.assert_array_equal(chunk["idx"][g].numpy(), want)
-    with pytest.raises(NotImplementedError, match="refresh"):
-        next(device_data.device_chunk_batches(groups, BATCH, 3, device="cpu", refresh={"reference": (None, 1)}))
+    # a refresh every 0 chunks never calls its factory: the same streams
+    def factory(generation):
+        raise AssertionError("called")
+
+    refreshed = device_data.device_chunk_batches(groups, BATCH, 3, seed=5, device="cpu",
+                                                 refresh={"reference": (factory, 0)})
+    samplers = {g: jdata.IndexSampler(len(next(iter(t.values()))), BATCH, seed=5 + j).epochs()
+                for j, (g, t) in enumerate(groups.items())}
+    for _ in range(4):
+        chunk = next(refreshed)
+        for g in groups:
+            np.testing.assert_array_equal(chunk["idx"][g].numpy(), np.stack([next(samplers[g]) for _ in range(3)]))
+    refreshed.close()
 
 
 def test_pooled_chunk_matches_jax(weights):
@@ -541,14 +562,13 @@ def test_trainer_run_snapshots_restore_and_serve(weights, tmp_path):
     K = 3
     chunks = device_data.device_chunk_batches(_pools(2), BATCH, K, seed=0, device="cpu")
     config = AlternatingConfig(image_size=Size(IMG, IMG))
-    with pytest.raises(NotImplementedError, match="control"):
-        Trainer(None, loc, ass, chunks, log_dir, 6, control=object())
     trainer = Trainer(
         functools.partial(pooled_step, steps_per_call=K, config=config),
         loc, ass, chunks, log_dir, max_iterations=6,
         generator=torch.Generator().manual_seed(0), config={"batch_size": BATCH},
         snapshot_interval=3, log_interval=3, steps_per_call=K,
         lr_schedule=two_state_lr_shifter(LR, 5e-4, 3, 6), print_report=False,
+        control=CommandChannel(log_dir),  # no command: no effect
     )
     loc, ass = trainer.run()
     assert trainer.iteration == 6 and loc.step == 6 and ass.step == 6
