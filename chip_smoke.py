@@ -62,10 +62,27 @@ Phases, one line or more each; any failure exits non-zero:
 11. the same CLI for 8 ``--supervised`` iterations (no d theta launch) and
    16 ``--bf16`` iterations (every crop still K1's float32 kernel); then
    the bf16 step and the float32 step on phase 5's pools, 3 timed chunks
-   each after a warm-up, alternating, and one traced bf16 chunk.
+   each after a warm-up, alternating, and one traced bf16 chunk;
+12. offline evaluation: ``cli.evaluate.main`` in this process sweeps phase
+   10's three snapshots (iterations 32, 64, 96) on 64 labeled synthetic
+   scenes of phase 10's world, batch 32, with the assessor, a BatchNorm
+   warm-up of one batch, renders and deteval XML: per snapshot its metrics,
+   seconds and eval images/s, K1's forward launched once per batch and pass
+   (3 snapshots x 2 batches x 3 passes), nothing else; a second run
+   evaluates nothing (resume); the last snapshot scored on the CPU against
+   the card (boxes and mean IoU); phase 8's rotated log dir swept the same
+   way on K2's forward; the XML and a render read back;
+13. VisualBackprop serving: ``LocalizerInference(use_visual_backprop=True)``
+   on phase 3's snapshot at batch 32, the heat map card against CPU, and
+   serving images/s with and without it (median of 3 batches each, in
+   turns);
+14. the port's bench (``loans_tpu_torch.bench.measure`` at its operating
+   point: R-50 bf16, batch 128, calls of 10 steps), its JSON line with the
+   per-call spread and K1's launches.
 
 The line before the last is a JSON object of the six kernels: launches in
-phase 10, the CLI (K1), and phase 8 (K2), errors from phases 2, 2b and 7, times and
+phase 10, the CLI (K1), and phase 8 (K2), with the launches of every path
+driven (``launches_by_path``), errors from phases 2, 2b and 7, times and
 bounds at the training batch: ``ms`` per call (CUDA events, host launch
 included), ``device_ms`` (profiler, calls back to back), ``device_cold_ms``
 (L2 flushed before each call) and ``device_in_situ_ms`` (per launch in the
@@ -76,25 +93,32 @@ exits with an error before printing either.
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import functools
 import importlib.util
 import json
 import os
 import statistics
+import struct
 import subprocess
 import tempfile
 import time
+import xml.etree.ElementTree as ET
+import zlib
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-from loans_tpu_torch.cli import train_localizer
+from loans_tpu_torch import bench
+from loans_tpu_torch.cli import evaluate, train_localizer
 from loans_tpu_torch.cli.bench_samplers import FLUSH_BYTES, device_events, device_time, fmt_us
 from loans_tpu_torch.data import synthetic
 from loans_tpu_torch.data.device_data import device_chunk_batches
+from loans_tpu_torch.data.loader import DataLoader, padded_collate
+from loans_tpu_torch.evaluation.evaluator import Evaluator
 from loans_tpu_torch.inference.localizer import LocalizerInference, set_precision
 from loans_tpu_torch.ops import _cuda, stn
 from loans_tpu_torch.ops.geometry import Size, box_to_theta, corners_to_aabb, theta_corners
@@ -175,6 +199,18 @@ SLICE_TOL = {"theta": 1e-4, "boxes_px": 1e-2, "rois_at_card_theta": 1e-5, "score
 # field's gradient, so its largest elementwise difference is of the order
 # of the gradient (each convolution's dgrad alone agrees to 2e-6).
 STEP_TOL = {"loss": 1e-3, "dtheta": 1e-2, "head_grad": 1e-3, "stem_grad": 5e-2, "bn_stats": 1e-4}
+# phase 12: the evaluation CLI's scenes; card against CPU, the last
+# snapshot's boxes after the same BatchNorm warm-up: phase 4's tolerance (the
+# same float32 networks, TF32 off; a warm-up on 32 images moves the
+# statistics by a float32 sum's error), and its mean IoU by what that moves
+EVAL_SCENES = 64
+EVAL_TOL = {"boxes_px": SLICE_TOL["boxes_px"]}
+# phase 13: the heat map, card against CPU. It multiplies and renormalizes
+# the channel means of the 50 recorded maps of R-50, each computed in float32 by cuDNN
+# and the CPU in another order (phase 4: theta within ~2e-5 of its size);
+# against JAX on the CPU the port's agrees within 1e-6. 1e-3 is a quarter
+# of one step of the served uint8 image.
+VBP_TOL = 1e-3
 # H100 SXM peaks at 700 W (NVIDIA data sheet): HBM bytes/s and float32
 # FLOP/s outside the tensor cores
 HBM_BYTES_PER_S = 3.35e12
@@ -205,13 +241,14 @@ NO_LAUNCHES = {"fwd": 0, "bwd_theta": 0, "bwd_images": 0}
 # on synthetic data, as a user runs it on one card
 # 96 iterations, so that the refresh submitted at chunk 2 (iteration 16) has
 # 9 chunk boundaries to be swapped in at: twice the ~4.4 s its 512 crops take
-# to generate alone, even at the step's full rate
-CLI_ITERATIONS, CLI_EVAL_BATCHES = 96, 2
+# to generate alone, even at the step's full rate; a snapshot every 32, so
+# that phase 12 has a sweep of three to evaluate
+CLI_ITERATIONS, CLI_EVAL_BATCHES, CLI_SNAPSHOT_INTERVAL = 96, 2, 32
 CLI_ARGV = [
     "synthetic:256", "synthetic:512", "synthetic:64", "--batch-size", str(TRAIN_BATCH),
     "--n-layers", "50", "--target-size", str(INPUT), str(INPUT), "--crop-size", str(CROP), str(CROP),
     "--iterations", str(CLI_ITERATIONS), "--steps-per-call", str(STEPS_PER_CALL),
-    "--log-interval", str(STEPS_PER_CALL), "--snapshot-interval", str(CLI_ITERATIONS),
+    "--log-interval", str(STEPS_PER_CALL), "--snapshot-interval", str(CLI_SNAPSHOT_INTERVAL),
     "--eval-batches", str(CLI_EVAL_BATCHES), "--assessor-pipeline", "stn", "--assessor-refresh", "16",
     "--synthetic-assets", "16", "--device", DEVICE,
 ]
@@ -351,7 +388,7 @@ def environment() -> str:
     ).stdout.strip().splitlines()[-1]
     print(f"env: torch {torch.__version__}, CUDA {torch.version.cuda}, nvcc {nvcc}, "
           f"device {torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}; "
-          + ", ".join(f"{m} {'installed' if importlib.util.find_spec(m) else 'absent'}" for m in ("PIL", "cv2")))
+          + ", ".join(f"{m} {'installed' if importlib.util.find_spec(m) else 'absent'}" for m in ("PIL", "cv2", "matplotlib")))
     start = time.perf_counter()
     _cuda.build_all()
     for name in _cuda.SIGNATURES:
@@ -781,12 +818,10 @@ def write_log_dir(log_dir: str, calib: np.ndarray) -> None:
     with torch.no_grad():
         for bn in bns:
             bn.momentum = 1.0  # running statistics = this batch's
-        loc.train()
-        feats = loc.feature_extractor((x * 255.0 - loc.mean).permute(0, 3, 1, 2))
+        loc.train().features(x)
         for bn in bns:
             bn.momentum = 0.1
-        loc.eval()
-        feats = loc.feature_extractor((x * 255.0 - loc.mean).permute(0, 3, 1, 2)).mean(dim=(2, 3))
+        feats = loc.eval().features(x).mean(dim=(2, 3))
         mu, sd = feats.mean(0), feats.std(0).mean()
         gen = torch.Generator(device=DEVICE).manual_seed(SEED)
         w = torch.randn(6, feats.shape[1], generator=gen, device=DEVICE)
@@ -909,11 +944,12 @@ def build_pair(device, manifest: dict = MANIFEST) -> tuple[nn.Module, nn.Module]
     return loc.to(device), build_assessor(manifest["assessor"], loc).to(device)
 
 
-def train_slice(pools: dict, card: str, manifest: dict = MANIFEST) -> dict:
+def train_slice(pools: dict, card: str, manifest: dict = MANIFEST, log_dir: str | None = None) -> dict:
     """``Trainer`` over ``pooled_step`` with ``manifest``'s models; checks
     that the crop's kernels (K2 at a non-zero rotation ratio, else K1)
     carried every step and the other crop's never ran, then serves the last
-    snapshot on the card."""
+    snapshot on the card. The log dir is kept at ``log_dir`` when one is
+    given."""
     rotated = manifest["localizer"]["kwargs"]["rotation_dropout_ratio"] > 0
     used, unused = ("K2", "K1") if rotated else ("K1", "K2")
     tag = "train rotated" if rotated else "train"
@@ -930,7 +966,7 @@ def train_slice(pools: dict, card: str, manifest: dict = MANIFEST) -> dict:
     print(f"{tag}: pools on the card {nbytes / 2**20:.1f} MiB ({POOL_SCENES} scenes, {POOL_CROPS} crops, uint8); "
           f"localizer {manifest['localizer']['kwargs']}")
     generator = torch.Generator(device=DEVICE).manual_seed(SEED)
-    with tempfile.TemporaryDirectory() as log_dir:
+    with contextlib.nullcontext(log_dir) if log_dir else tempfile.TemporaryDirectory() as log_dir:
         checkpoint.save_manifest(log_dir, manifest)
         trainer = Trainer(
             step_fn, loc_state, ass_state, chunks, log_dir, max_iterations=n_steps, generator=generator,
@@ -1092,13 +1128,14 @@ def step_against_cpu(pools: dict, manifest: dict = MANIFEST, samplers: dict | No
 
 
 # -- phases 10 and 11 ---------------------------------------------------------
-def cli_run(tag: str, argv: list[str], card: str) -> dict:
+def cli_run(tag: str, argv: list[str], card: str, log_root: str | None = None) -> dict:
     """``train_localizer.main(argv)`` in this process with every launch
     count at 0; checks the log, the launches of each kind, and serves the
-    log dir. Returns the launches, the log, and the accounting."""
+    log dir. Returns the launches, the log, the accounting and the log dir,
+    which is kept under ``log_root`` when one is given."""
     args = train_localizer.get_parser().parse_args(argv)
     iterations = args.iterations
-    with tempfile.TemporaryDirectory() as tmp:
+    with contextlib.nullcontext(log_root) if log_root else tempfile.TemporaryDirectory() as tmp:
         torch.cuda.synchronize()
         reset_launches()
         synthetic.render_stn_crops.batches = 0
@@ -1125,20 +1162,26 @@ def cli_run(tag: str, argv: list[str], card: str) -> dict:
               f"{tag}: K1 launches {launches['K1']} for {steps} alternating steps")
         check(launches["K2"] == NO_LAUNCHES, f"{tag}: K2 launches {launches['K2']}")
         snaps = sorted(os.listdir(log_dir))
-        want = {"manifest.json", "log", f"Localizer_{iterations}.pt"}
+        written = list(range(args.snapshot_interval, iterations + 1, args.snapshot_interval))
+        want = {"manifest.json", "log"} | {f"Localizer_{i}.pt" for i in written}
         if not args.supervised:
-            want.add(f"ResnetAssessor_{iterations}.pt")
+            want |= {f"ResnetAssessor_{i}.pt" for i in written}
         check(want <= set(snaps), f"{tag}: the log dir holds {snaps}")
+        # a snapshot is written after the log entry of its iteration, so the
+        # next entry's interval holds the write (the last one follows the run)
+        with_writes = [e["iteration"] for e in log if e["iteration"] - args.log_interval in written]
         for e in log:
             print(f"{tag}: iteration {int(e['iteration'])} images_per_sec {e['images_per_sec']:.1f} "
                   + " ".join(f"{k} {e[k]:.5f}" for k in losses + ["mean_iou", "map"]))
         print(f"{tag}: {iterations} iterations in {wall_s:.2f} s of wall time (data generation included); "
               f"K1 launches {launches['K1']}: forward = {steps} steps + {evals} eval forwards "
               f"+ {renders} render batches of {synthetic.RENDER_BATCH}; pool swaps {swaps}; log dir {snaps}")
+        print(f"{tag}: snapshots at iterations {written}; the log entries at iterations "
+              f"{[int(i) for i in with_writes]} include a snapshot write in their interval")
         served = serve_cli_log_dir(tag, log_dir, args)
     rates = [e["images_per_sec"] for e in log[1:] or log]
     return {"launches": launches["K1"], "swaps": swaps, "log": log, "served": served,
-            "images_per_s": statistics.median(rates)}
+            "images_per_s": statistics.median(rates), "log_dir": log_dir}
 
 
 def render_against_plain(argv: list[str]) -> None:
@@ -1202,12 +1245,12 @@ def serve_cli_log_dir(tag: str, log_dir: str, args) -> float:
     return err
 
 
-def cli_phases(card: str, f32_step_rate: float) -> dict:
-    """Phase 10 (float32, with the pool refresh) and phase 11
-    (``--supervised``, ``--bf16``, and the bf16 step timed beside the
-    float32 one)."""
+def cli_phases(card: str, f32_step_rate: float, log_root: str) -> dict:
+    """Phase 10 (float32, with the pool refresh; its log dir kept under
+    ``log_root`` for phase 12) and phase 11 (``--supervised``, ``--bf16``,
+    and the bf16 step timed beside the float32 one)."""
     render_against_plain(CLI_ARGV)
-    f32 = cli_run("cli", CLI_ARGV, card)
+    f32 = cli_run("cli", CLI_ARGV, card, log_root)
     check(f32["swaps"] >= 1, f"cli: no assessor pool swap in {CLI_ITERATIONS} iterations")
     rates = ", ".join(f"{e['images_per_sec']:.1f}" for e in f32["log"][1:])
     print(f"cli: images/s at batch {TRAIN_BATCH}, float32, log entries after the first (each one interval "
@@ -1272,14 +1315,217 @@ def bf16_step(card: str, f32_step_rate: float) -> None:
         print(f"cli bf16: in the traced chunk, {kernel} {fmt_us(us)} device time per launch ({count} launches)")
 
 
+# -- phase 12 ---------------------------------------------------------------
+def read_png(path: str) -> np.ndarray:
+    """An 8-bit RGB PNG of ``insights.rendering.write_png`` (no filter, no
+    interlace) as an HW3 uint8 array: the card's machine has no Pillow."""
+    with open(path, "rb") as f:
+        data = f.read()
+    check(data[:8] == b"\x89PNG\r\n\x1a\n", f"{path}: not a PNG")
+    pos, idat, header = 8, b"", None
+    while pos < len(data):
+        (length,) = struct.unpack(">I", data[pos : pos + 4])
+        kind, body = data[pos + 4 : pos + 8], data[pos + 8 : pos + 8 + length]
+        check(zlib.crc32(kind + body) == struct.unpack(">I", data[pos + 8 + length : pos + 12 + length])[0],
+              f"{path}: bad CRC in {kind!r}")
+        if kind == b"IHDR":
+            header = struct.unpack(">IIBBBBB", body)
+        elif kind == b"IDAT":
+            idat += body
+        pos += 12 + length
+    w, h, depth, color = header[:4]
+    check(depth == 8 and color == 2, f"{path}: depth {depth}, color type {color}")
+    rows = np.frombuffer(zlib.decompress(idat), np.uint8).reshape(h, 1 + w * 3)
+    check(not rows[:, 0].any(), f"{path}: a row is filtered")
+    return rows[:, 1:].reshape(h, w, 3)
+
+
+def eval_argv(log_dir: str, out: str) -> list[str]:
+    """The evaluation CLI on phase 10's world (the train CLI's val seed and
+    asset seed: ``evaluate``'s defaults for a run at seed 0), batch 32."""
+    return [f"synthetic:{EVAL_SCENES}", log_dir, "-b", str(BATCH), "-a", "--bn-warmup", "1",
+            "--deteval", f"{out}/deteval", "--save-predictions", f"{out}/renders",
+            "--synthetic-assets", "16", "--device", DEVICE]
+
+
+def sweep_on_card(tag: str, log_dir: str, out: str, used: str, card: str) -> dict:
+    """``cli.evaluate.main`` on the card with every count at 0: checks that
+    each batch of each pass (scoring, renders, deteval) launched ``used``'s
+    forward once and nothing else ran, the entries, the deteval XML and
+    one render; then runs the CLI again, which must evaluate nothing."""
+    snaps = checkpoint.list_snapshots(log_dir, "Localizer_")
+    torch.cuda.synchronize()
+    reset_launches()
+    start = time.perf_counter()
+    results = evaluate.main(eval_argv(log_dir, out))
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - start
+    launches = read_launches()
+    n_batches = EVAL_SCENES // BATCH
+    passes = 3  # scoring, renders, deteval
+    want = len(snaps) * n_batches * passes
+    other = "K1" if used == "K2" else "K2"
+    check(launches == {used: {**NO_LAUNCHES, "fwd": want}, other: NO_LAUNCHES},
+          f"{tag}: launches {launches} for {len(snaps)} snapshots x {n_batches} batches x {passes} passes")
+    names = [os.path.basename(p) for _, p in snaps]
+    check([e["snapshot_name"] for e in results.entries] == names, f"{tag}: entries {results.entries}")
+    for e in results.entries:
+        t = results.timings[e["snapshot_name"]]
+        check(all(np.isfinite(e[k]) for k in ("map", "mean_iou", "ap/object", "mean_assessor_score")),
+              f"{tag}: {e}")
+        check(0.0 <= e["mean_iou"] <= 1.0 and 0.0 <= e["mean_assessor_score"] <= 1.0, f"{tag}: {e}")
+        print(f"{tag}: {e['snapshot_name']} map {e['map']:.4f} mean_iou {e['mean_iou']:.4f} "
+              f"mean_assessor_score {e['mean_assessor_score']:.4f}; {t['seconds']:.3f} s for the snapshot "
+              f"(restore, warm-up, 3 passes), scoring {t['images'] / t['score_seconds']:.1f} images/s "
+              f"({t['images']} images, batch {BATCH}) ({card})")
+    print(f"{tag}: {len(snaps)} snapshots in {wall_s:.2f} s of wall time (data generation included); "
+          f"{used} forward launches {launches[used]['fwd']} = {len(snaps)} snapshots x {n_batches} batches "
+          f"x {passes} passes, {other} {launches[other]}")
+    for iteration, _ in snaps:  # the deteval XML and the renders read back
+        root = ET.parse(f"{out}/deteval/deteval_{iteration}.xml").getroot()
+        images = root.findall("image")
+        check(len(images) == n_batches * BATCH and all(len(i.find("taggedRectangles")) == 1 for i in images),
+              f"{tag}: deteval_{iteration}.xml holds {len(images)} images")
+        renders = sorted(os.listdir(f"{out}/renders/{iteration}"))
+        check(len(renders) == n_batches * BATCH, f"{tag}: {len(renders)} renders of iteration {iteration}")
+    png = read_png(f"{out}/renders/{iteration}/0.png")
+    check(png.shape == (INPUT, INPUT, 3), f"{tag}: a render of shape {png.shape}")
+    check(bool((png == 255).all(-1).any()), f"{tag}: no white gt outline in the render")
+    print(f"{tag}: deteval XML of {n_batches * BATCH} images per snapshot and {len(renders)} renders per "
+          f"snapshot read back; render 0 of iteration {iteration} {png.shape} {png.dtype}")
+    reset_launches()
+    again = evaluate.main(eval_argv(log_dir, out))
+    launches = read_launches()
+    check(not again.timings and len(again.entries) == len(snaps), f"{tag}: the second run evaluated {again.timings}")
+    check(launches == {"K1": NO_LAUNCHES, "K2": NO_LAUNCHES}, f"{tag}: the second run launched {launches}")
+    print(f"{tag}: a second run evaluated nothing (resume): {len(again.entries)} entries, no launch")
+    return {"results": results, "launches": want}
+
+
+def evaluation_phase(card: str, cli_log_dir: str, rotated_log_dir: str, out: str) -> dict:
+    """Phase 12: phase 10's sweep on the card, its last snapshot on the CPU
+    against the card, and phase 8's rotated log dir on K2."""
+    k1 = sweep_on_card("evaluate", cli_log_dir, f"{out}/cli", "K1", card)
+    # the last snapshot again, on the card and on the CPU, with the same
+    # warm-up: the scores, and the boxes of every eval image
+    args = evaluate.get_parser().parse_args(eval_argv(cli_log_dir, out))
+    ds = evaluate.build_dataset(args, Size(INPUT, INPUT))
+
+    def batches():
+        return iter(DataLoader(ds, BATCH, shuffle=False, drop_last=True, collate=padded_collate))
+
+    last = checkpoint.list_snapshots(cli_log_dir, "Localizer_")[-1][1]
+    prefix = os.path.basename(last)[: -len(".pt")]
+    boxes, entries = {}, {}
+    for device in (DEVICE, "cpu"):
+        ev = Evaluator(cli_log_dir, snapshot_prefix=prefix, results_name=f"eval_last_{device}.json",
+                       use_assessor=True, device=device)
+        if device == DEVICE:  # traced: where a snapshot's warm-up and scoring pass spend their time
+            acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+            with torch.profiler.profile(activities=acts) as prof:
+                start = time.perf_counter()
+                entries[device] = ev.sweep(batches, bn_warmup=1).entries[-1]
+                torch.cuda.synchronize()
+                wall_ms = (time.perf_counter() - start) * 1e3
+            print_trace(prof, f"Evaluator.sweep of {prefix}.pt (restore, warm-up, scoring; batch {BATCH})",
+                        wall_ms, card, top=10)
+        else:
+            entries[device] = ev.sweep(batches, bn_warmup=1).entries[-1]
+        boxes[device] = np.concatenate([ev.predict(torch.from_numpy(b[0]).to(device)) for b in batches()])
+    gt = np.concatenate([b[1][:, 0] for b in batches()])
+    sides = np.concatenate([boxes["cpu"][:, 2:] - boxes["cpu"][:, :2], gt[:, 2:] - gt[:, :2]]).ravel()
+    min_side = float(sides[sides > 0].min())
+    box_err = float(np.abs(boxes[DEVICE] - boxes["cpu"]).max())
+    iou_err = abs(entries[DEVICE]["mean_iou"] - entries["cpu"]["mean_iou"])
+    # a box corner moved by e px moves an IoU by at most 2 e / (the smaller
+    # side it meets); four corners: 8 e over the smallest side of any box
+    iou_tol = 8 * EVAL_TOL["boxes_px"] / min_side
+    print(f"evaluate card vs CPU ({prefix}.pt, {len(gt)} images, BatchNorm warm-up on each device): boxes max "
+          f"{box_err:.3e} px (tol {EVAL_TOL['boxes_px']:g}), mean_iou {iou_err:.3e} (tol {iou_tol:.3g}: "
+          f"8 x the box tol over the smallest box side, {min_side:.1f} px), map card "
+          f"{entries[DEVICE]['map']:.4f} CPU {entries['cpu']['map']:.4f}, mean_assessor_score diff "
+          f"{abs(entries[DEVICE]['mean_assessor_score'] - entries['cpu']['mean_assessor_score']):.3e}")
+    check(box_err <= EVAL_TOL["boxes_px"], f"evaluate card vs CPU: boxes {box_err} px")
+    check(iou_err <= iou_tol, f"evaluate card vs CPU: mean_iou {iou_err} > {iou_tol}")
+    k2 = sweep_on_card("evaluate rotated", rotated_log_dir, f"{out}/rotated", "K2", card)
+    return {"K1": k1["launches"], "K2": k2["launches"]}
+
+
+# -- phase 13 ---------------------------------------------------------------
+def vbp_phase(card: str, serve_log_dir: str, frames: np.ndarray) -> int:
+    """VisualBackprop served on the card at batch 32: the heat map against
+    the CPU's, and images/s with and without it, in turns."""
+    batch = frames[2 : 2 + BATCH]
+    served = {vbp: LocalizerInference(serve_log_dir, device=DEVICE, use_assessor=True, use_visual_backprop=vbp)
+              for vbp in (True, False)}
+    cpu = LocalizerInference(serve_log_dir, device="cpu", use_assessor=True, use_visual_backprop=True)
+    for inf in served.values():
+        inf.localize_batch(batch)  # warm-up
+    torch.cuda.synchronize()
+    reset_launches()
+    rates = {True: [], False: []}
+    for _ in range(3):
+        for vbp, inf in served.items():
+            start = time.perf_counter()
+            boxes, rois, scores, heat = inf.localize_batch(batch)
+            rates[vbp].append(BATCH / (time.perf_counter() - start))
+            check(np.isfinite(boxes).all() and (heat is None) != vbp, "vbp serving outputs")
+            if vbp:
+                check(len(heat) == BATCH and heat[0].shape == (INPUT, INPUT, 3) and heat[0].dtype == np.uint8,
+                      "vbp heat maps")
+                check(int(np.ptp(np.stack(heat))) > 100, "vbp heat maps are not constant")
+    launches = read_launches()
+    check(launches == {"K1": {**NO_LAUNCHES, "fwd": 6}, "K2": NO_LAUNCHES},
+          f"vbp: 6 batches launched {launches}")
+    card_heat = served[True]._predict(batch)[3].cpu()
+    cpu_heat = cpu._predict(batch)[3]
+    err = float((card_heat - cpu_heat).abs().max())
+    print(f"vbp card vs CPU: heat map max abs err {err:.3e} (tol {VBP_TOL:g}) over {BATCH} frames "
+          f"{INPUT}^2, {len(served[True].localizer.vbp_ladder())} ladder steps")
+    check(err <= VBP_TOL, f"vbp card vs CPU: {err} > {VBP_TOL}")
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:  # after the timed batches
+        start = time.perf_counter()
+        served[True].localize_batch(batch)
+        wall_ms = (time.perf_counter() - start) * 1e3
+    print_trace(prof, f"localize_batch({BATCH}) with VisualBackprop", wall_ms, card, top=10)
+    med = {vbp: statistics.median(r) for vbp, r in rates.items()}
+    print(f"vbp: localize_batch({BATCH}) images/s with VisualBackprop "
+          f"{', '.join(f'{r:.1f}' for r in rates[True])} (median {med[True]:.1f}), without "
+          f"{', '.join(f'{r:.1f}' for r in rates[False])} (median {med[False]:.1f}), in turns; "
+          f"{med[True] / med[False]:.3f}x; K1 forward launches {launches['K1']['fwd']} ({card})")
+    return launches["K1"]["fwd"]
+
+
+# -- phase 14 ---------------------------------------------------------------
+def bench_phase(card: str) -> dict:
+    """The port's bench at its operating point, with K1's launches."""
+    torch.cuda.synchronize()
+    reset_launches()
+    run = bench.measure()
+    launches = read_launches()
+    steps = bench.STEPS_PER_CALL * (bench.WARMUP_CALLS + bench.CALLS)
+    check(launches == {"K1": {**NO_LAUNCHES, "fwd": steps, "bwd_theta": steps}, "K2": NO_LAUNCHES},
+          f"bench: {steps} steps launched {launches}")
+    line = bench.result_line(run, bench.BATCH)
+    print(json.dumps(line))
+    calls = sorted(run["call_ms"])
+    print(f"bench: {bench.CALLS} timed calls of {bench.STEPS_PER_CALL} steps at batch {bench.BATCH} "
+          f"(bf16, after {bench.WARMUP_CALLS} warm-up calls): {run['images_per_sec']:.2f} images/s; per call "
+          f"(CUDA events) min {calls[0]:.2f} ms, median {statistics.median(calls):.2f} ms, max {calls[-1]:.2f} ms; "
+          f"loss_localizer {run['loss_localizer']:.5f}; K1 launches {launches['K1']} ({card})")
+    return {"fwd": steps, "bwd_theta": steps}
+
+
 def kernel_entry(name: str, source: str, replaces: str, launches: int, err: float, t: dict,
-                 in_situ: dict) -> dict:
+                 in_situ: dict, by_path: dict) -> dict:
     return {
         "name": name,
         "route": "cuda",
         "source": f"loans_tpu_torch/ops/csrc/{source}",
         "replaces": replaces,
         "launches": launches,
+        "launches_by_path": by_path,
         "max_abs_err": err,
         "ms": t["ms"],
         "plain_ms": t["plain_ms"],
@@ -1301,35 +1547,55 @@ def main() -> None:
     k1_bwd = backward_against_plain(card)
     frames = scenes(np.random.default_rng(SEED + 1), 2 + 3 * BATCH, INPUT)
     calib = scenes(np.random.default_rng(SEED + 2), BATCH, INPUT)
-    with tempfile.TemporaryDirectory() as log_dir:
-        write_log_dir(log_dir, calib)
-        inf = LocalizerInference(log_dir, device=DEVICE, use_assessor=True)
-        serve(inf, frames, card)
-        card_against_cpu(log_dir, inf, frames)
-    pools = training_pools()
-    k1_train = train_slice(pools, card)
-    step_against_cpu(pools)
-    k2 = rotated_against_plain(card)
-    k2_train = train_slice(pools, card, with_kwargs(**ROTATED_KWARGS))
-    step_against_cpu(pools, with_kwargs(rotation_dropout_ratio=1.0),
-                     samplers={DEVICE: "rotated_pallas", "cpu": "rotated"})
-    cli = cli_phases(card, k1_train["images_per_s"])
+    with tempfile.TemporaryDirectory() as work:  # log dirs that phases 12 and 13 read again
+        serve_dir, rotated_dir = f"{work}/serve", f"{work}/rotated"
+        write_log_dir(serve_dir, calib)
+        inf = LocalizerInference(serve_dir, device=DEVICE, use_assessor=True)
+        serving = serve(inf, frames, card)
+        card_against_cpu(serve_dir, inf, frames)
+        pools = training_pools()
+        k1_train = train_slice(pools, card)
+        step_against_cpu(pools)
+        k2 = rotated_against_plain(card)
+        k2_train = train_slice(pools, card, with_kwargs(**ROTATED_KWARGS), rotated_dir)
+        step_against_cpu(pools, with_kwargs(rotation_dropout_ratio=1.0),
+                         samplers={DEVICE: "rotated_pallas", "cpu": "rotated"})
+        cli = cli_phases(card, k1_train["images_per_s"], f"{work}/cli")
+        evaluated = evaluation_phase(card, cli["log_dir"], rotated_dir, f"{work}/evaluate")
+        vbp_launches = vbp_phase(card, serve_dir, frames)
+        bench_launches = bench_phase(card)
     k1_src, k2_src = "separable_sampler.cu", "rotated_sampler.cu"
     launches1, launches2 = cli["launches"], k2_train["launches"]
     in_situ = {**k1_train["device_in_situ_ms"], **k2_train["device_in_situ_ms"]}
+    k1_paths = {
+        "fwd": {"serve": serving["launches"], "train": k1_train["launches"]["fwd"], "train_cli": launches1["fwd"],
+                "evaluate": evaluated["K1"], "serve_vbp": vbp_launches, "bench": bench_launches["fwd"]},
+        "bwd_theta": {"train": k1_train["launches"]["bwd_theta"], "train_cli": launches1["bwd_theta"],
+                      "evaluate": 0, "bench": bench_launches["bwd_theta"]},
+        "bwd_images": {"train": 0, "train_cli": launches1["bwd_images"], "evaluate": 0, "bench": 0},
+    }
+    k2_paths = {
+        "fwd": {"train_rotated": launches2["fwd"], "evaluate_rotated": evaluated["K2"]},
+        "bwd_theta": {"train_rotated": launches2["bwd_theta"], "evaluate_rotated": 0},
+        "bwd_images": {"train_rotated": launches2["bwd_images"], "evaluate_rotated": 0},
+    }
     print(json.dumps({"kernels": [
         kernel_entry("separable_sampler_fwd", k1_src, "loans_tpu/ops/stn.py:421", launches1["fwd"],
-                     k1["max_abs_err"], k1["times"][TRAIN_BATCH], in_situ),
+                     k1["max_abs_err"], k1["times"][TRAIN_BATCH], in_situ, k1_paths["fwd"]),
         kernel_entry("separable_sampler_bwd_theta", k1_src, "loans_tpu/ops/stn.py:641", launches1["bwd_theta"],
-                     k1_bwd["max_abs_err"]["bwd_theta"], k1_bwd["times"]["bwd_theta"][TRAIN_BATCH], in_situ),
+                     k1_bwd["max_abs_err"]["bwd_theta"], k1_bwd["times"]["bwd_theta"][TRAIN_BATCH], in_situ,
+                     k1_paths["bwd_theta"]),
         kernel_entry("separable_sampler_bwd_images", k1_src, "loans_tpu/ops/stn.py:641", launches1["bwd_images"],
-                     k1_bwd["max_abs_err"]["bwd_images"], k1_bwd["times"]["bwd_images"][TRAIN_BATCH], in_situ),
+                     k1_bwd["max_abs_err"]["bwd_images"], k1_bwd["times"]["bwd_images"][TRAIN_BATCH], in_situ,
+                     k1_paths["bwd_images"]),
         kernel_entry("rotated_sampler_fwd", k2_src, "loans_tpu/ops/stn.py:474", launches2["fwd"],
-                     k2["max_abs_err"]["fwd"], k2["times"]["fwd"][TRAIN_BATCH], in_situ),
+                     k2["max_abs_err"]["fwd"], k2["times"]["fwd"][TRAIN_BATCH], in_situ, k2_paths["fwd"]),
         kernel_entry("rotated_sampler_bwd_theta", k2_src, "loans_tpu/ops/stn.py:256", launches2["bwd_theta"],
-                     k2["max_abs_err"]["bwd_theta"], k2["times"]["bwd_theta"][TRAIN_BATCH], in_situ),
+                     k2["max_abs_err"]["bwd_theta"], k2["times"]["bwd_theta"][TRAIN_BATCH], in_situ,
+                     k2_paths["bwd_theta"]),
         kernel_entry("rotated_sampler_bwd_images", k2_src, "loans_tpu/ops/stn.py:256", launches2["bwd_images"],
-                     k2["max_abs_err"]["bwd_images"], k2["times"]["bwd_images"][TRAIN_BATCH], in_situ),
+                     k2["max_abs_err"]["bwd_images"], k2["times"]["bwd_images"][TRAIN_BATCH], in_situ,
+                     k2_paths["bwd_images"]),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

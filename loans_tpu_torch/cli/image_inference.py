@@ -2,7 +2,8 @@
 
 Iterate images (globs or a JSON list), localize each, draw the results
 and save them to ``--output-dir``, optionally gated by the assessor
-score. The log dir needs the port's ``.pt`` snapshots
+score, and with ``-v`` each frame's VisualBackprop heat map, resized to
+the frame, as ``<stem>_visual_backprop<ext>``. The log dir needs the port's ``.pt`` snapshots
 (``tools/export_torch_snapshot.py`` writes them from a JAX training run).
 
     python -m loans_tpu_torch.cli.image_inference <log_dir> -i 'imgs/*.png' -a
@@ -29,7 +30,7 @@ def get_parser() -> argparse.ArgumentParser:
                    help="gate results by assessor score")
     p.add_argument("--score-threshold", type=float, default=0.3)
     p.add_argument("--visual-backprop", "-v", action="store_true",
-                   help="also save attention heatmaps (not ported yet)")
+                   help="also save VisualBackprop attention heat maps")
     p.add_argument("--device", default="cuda",
                    help="torch device to run on (default: cuda)")
     return p
@@ -66,13 +67,20 @@ def main(argv=None):
             print(f"could not read {path}")
             continue
         resized, scale = localizer.resize(frame)
-        boxes, _rois, scores, _heat = localizer.localize(
+        boxes, _rois, scores, heat = localizer.localize(
             localizer.preprocess(resized, bgr_to_rgb=True)
         )
         vis = localizer.visualize_results(
             frame, localizer.scale_boxes(boxes, scale), scores
         )
-        cv2.imwrite(os.path.join(args.output_dir, os.path.basename(path)), vis)
+        base = os.path.basename(path)
+        cv2.imwrite(os.path.join(args.output_dir, base), vis)
+        if heat is not None:
+            stem, ext = os.path.splitext(base)
+            cv2.imwrite(
+                os.path.join(args.output_dir, f"{stem}_visual_backprop{ext}"),
+                cv2.resize(heat[..., ::-1], (frame.shape[1], frame.shape[0])),
+            )
         print(f"{path}: box={boxes[0].tolist()} score={float(scores[0]):.3f}")
 
 

@@ -26,9 +26,10 @@ class MAPEvaluator:
     """Callable evaluator over batches of (images, gt boxes, ...).
 
     ``bn_warmup`` > 0 re-estimates the BatchNorm running statistics from
-    that many eval batches (train-mode forwards of the backbone and head)
-    before scoring, and puts the live statistics back afterwards, so
-    training never sees the warmed ones. ``forwards`` counts the eval-mode
+    that many eval batches (train-mode forwards of the backbone,
+    ``Localizer.features``: the head, rotation dropout and the crop do not
+    touch the statistics) before scoring, and puts the live statistics back
+    afterwards, so training never sees the warmed ones. ``forwards`` counts the eval-mode
     forwards, each of which crops once.
     """
 
@@ -66,7 +67,7 @@ class MAPEvaluator:
         try:
             model.train()
             for batch in batches[: self.bn_warmup]:
-                model.predict_theta(to_float01(batch[0]))
+                model.features(to_float01(batch[0]))
         finally:
             model.train(was_training)
 

@@ -3,10 +3,10 @@ of ``loans_tpu/inference/localizer.py``).
 
 The models are rebuilt from ``manifest.json`` through the registry and
 restored from the log dir's ``<Name>_<iter>.pt`` snapshots. One forward
-(backbone, crop, optional assessor, boxes) runs under
-``torch.inference_mode()``; assessor gating happens on the host, as in
-the JAX package: below ``score_threshold`` a frame's box and score are
-zeroed.
+(backbone, crop, optional assessor, boxes, optional VisualBackprop heat
+map) runs under ``torch.inference_mode()``; assessor gating happens on the
+host, as in the JAX package: below ``score_threshold`` a frame's box and
+score are zeroed.
 
 Precision: float32 throughout. ``set_precision`` turns off TF32 in both
 cuDNN convolutions and cuBLAS matmuls (``torch.backends.cudnn.allow_tf32``,
@@ -23,6 +23,8 @@ import warnings
 import numpy as np
 import torch
 
+from loans_tpu_torch.insights.rendering import heatmap_to_rgb
+from loans_tpu_torch.insights.visual_backprop import visual_backprop
 from loans_tpu_torch.ops.geometry import corners_to_aabb, theta_corners
 from loans_tpu_torch.train import checkpoint
 from loans_tpu_torch.utils.registry import build_assessor, build_model
@@ -32,6 +34,10 @@ def set_precision() -> None:
     """Full float32: no TF32 in cuDNN convolutions or cuBLAS matmuls."""
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
+
+
+def _to_host(out) -> list[np.ndarray | None]:
+    return [None if t is None else t.cpu().numpy() for t in out]
 
 
 class LocalizerInference:
@@ -44,10 +50,6 @@ class LocalizerInference:
         use_assessor: bool = False,
         use_visual_backprop: bool = False,
     ):
-        if use_visual_backprop:
-            raise NotImplementedError(
-                "VisualBackprop is not ported to loans_tpu_torch yet"
-            )
         set_precision()
         self.log_dir = log_dir
         self.device = torch.device(device)
@@ -56,6 +58,7 @@ class LocalizerInference:
         self.localizer = build_model(loc_cfg["model"], **loc_cfg["kwargs"])
         self.input_size = self.localizer.input_size
         self.score_threshold = score_threshold
+        self.use_visual_backprop = use_visual_backprop
         self.use_assessor = use_assessor and "assessor" in self.manifest
         self.assessor = None
         if self.use_assessor:
@@ -108,17 +111,23 @@ class LocalizerInference:
 
     # -- forward ----------------------------------------------------------
     @torch.inference_mode()
-    def _predict(self, images) -> tuple[torch.Tensor, ...]:
-        """(rois, boxes, scores) on the device for an NHWC float batch."""
+    def _predict(self, images) -> tuple[torch.Tensor | None, ...]:
+        """(rois, boxes, scores, heat) on the device for an NHWC float
+        batch; heat (N, H, W, 1) is None without VisualBackprop."""
         batch = torch.as_tensor(np.asarray(images, dtype=np.float32))
         batch = batch.to(self.device)
-        rois, theta = self.localizer(batch)
+        recorded = [] if self.use_visual_backprop else None
+        rois, theta = self.localizer(batch, vbp=recorded)
         boxes = corners_to_aabb(theta_corners(theta), self.input_size, clip=True)
         if self.assessor is not None:
             scores = self.assessor(rois)[:, 0]
         else:
             scores = torch.ones(batch.shape[0], device=self.device)
-        return rois, boxes, scores
+        heat = None
+        if recorded is not None:
+            *inputs, anchor = recorded
+            heat = visual_backprop(anchor, inputs, self.localizer.vbp_ladder())
+        return rois, boxes, scores, heat
 
     # -- public API (reference surface) -----------------------------------
     def resize(self, image: np.ndarray):
@@ -148,15 +157,16 @@ class LocalizerInference:
         """Single-image inference.
 
         Returns (bboxes (1,4) yxyx pixels at model scale, rois, scores,
-        None). Below ``score_threshold`` with the assessor enabled, boxes
-        and scores are zeroed. The last item stands for the VisualBackprop
-        heatmap, which is not ported yet.
+        heat map or None): with ``use_visual_backprop``, the (H, W, 3)
+        uint8 VisualBackprop heat map at model scale (``heatmap_to_rgb``).
+        Below ``score_threshold`` with the assessor enabled, boxes and
+        scores are zeroed.
         """
-        rois, boxes, scores = (t.cpu().numpy() for t in self._predict(image[None]))
+        rois, boxes, scores, heat = _to_host(self._predict(image[None]))
         if self.use_assessor and float(scores[0]) < self.score_threshold:
             boxes = np.zeros_like(boxes)
             scores = np.zeros_like(scores)
-        return boxes, rois, scores, None
+        return boxes, rois, scores, None if heat is None else heatmap_to_rgb(heat[0])
 
     def localize_batch(self, images, sync: bool = True):
         """Batched inference over a list/stack of preprocessed frames.
@@ -171,14 +181,16 @@ class LocalizerInference:
 
     def finish_batch(self, out):
         """Collect a ``localize_batch(sync=False)`` result; returns
-        (boxes (B,1,4), rois, scores (B,), None) with the assessor gating
-        applied per frame."""
-        rois, boxes, scores = (t.cpu().numpy() for t in out)
+        (boxes (B,1,4), rois, scores (B,), heat maps) with the assessor
+        gating applied per frame; the heat maps are a list of (H, W, 3)
+        uint8 images with ``use_visual_backprop``, else None."""
+        rois, boxes, scores, heat = _to_host(out)
         if self.use_assessor:
             gated = scores < self.score_threshold
             boxes = np.where(gated[:, None], 0.0, boxes).astype(boxes.dtype)
             scores = np.where(gated, 0.0, scores).astype(scores.dtype)
-        return boxes[:, None, :], rois, scores, None
+        heat_imgs = None if heat is None else [heatmap_to_rgb(h) for h in heat]
+        return boxes[:, None, :], rois, scores, heat_imgs
 
     def scale_boxes(self, boxes: np.ndarray, scale) -> np.ndarray:
         sy, sx = scale

@@ -9,6 +9,12 @@
 * Rotation dropout, then the crop, then optional grayscale (standard luma
   0.299 R + 0.587 G + 0.114 B, as in the JAX package).
 
+VisualBackprop: ``forward`` and ``predict_theta`` take an optional list
+``vbp``, which receives the backbone's recorded inputs (see
+``models/resnet.py``), ``res6``'s and ``res7``'s, and last the anchor, the
+(N, C, h, w) feature map the head pools (the JAX package's
+``vbp_anchor``); ``vbp_ladder()`` gives the matching static ladder.
+
 ``sampler="auto"`` at ``rotation_dropout_ratio == 0`` crops with the CUDA
 kernels (``method="pallas"``) for CUDA tensors and with their plain
 PyTorch version (``method="separable"``) for CPU tensors, where no kernel
@@ -23,7 +29,14 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from loans_tpu_torch.models.resnet import BasicStage, BottleNeckStage, ResNet, set_dtypes
+from loans_tpu_torch.models.resnet import (
+    BasicStage,
+    BottleNeckStage,
+    ResNet,
+    resnet_vbp_ladder,
+    set_dtypes,
+    stage_ladder,
+)
 from loans_tpu_torch.ops.geometry import Size
 from loans_tpu_torch.ops.rotation_dropout import rotation_dropout
 from loans_tpu_torch.ops.stn import spatial_transform
@@ -100,20 +113,34 @@ class Localizer(nn.Module):
             return "general"
         return "pallas" if images.is_cuda else "separable"
 
+    def features(self, images: torch.Tensor, vbp: list | None = None) -> torch.Tensor:
+        """The (N, C, h, w) feature map the head pools, of ``images`` (N,
+        H, W, 3) RGB in [0, 1], NHWC: the backbone and ``res6``/``res7``.
+        In train mode it updates their BatchNorm statistics and draws
+        nothing."""
+        x = (images * 255.0 - self.mean.to(images.dtype)).permute(0, 3, 1, 2)
+        dtype = self.feature_extractor.Conv_0.compute_dtype
+        if dtype is not None:  # the JAX Localizer casts before its backbone
+            x = x.to(dtype)
+        h = self.feature_extractor(x, vbp)
+        if hasattr(self, "res6"):
+            h = self.res6(h, vbp)
+        if hasattr(self, "res7"):
+            h = self.res7(h, vbp)
+        return h
+
     def predict_theta(
         self,
         images: torch.Tensor,
         generator: torch.Generator | None = None,
+        vbp: list | None = None,
     ) -> torch.Tensor:
         """The (N, 2, 3) affine params of ``images`` (N, H, W, 3) RGB in
         [0, 1], NHWC, without the crop; ``generator`` draws rotation
         dropout in train mode at 0 < ratio < 1."""
-        x = images * 255.0 - self.mean.to(images.dtype)
-        h = self.feature_extractor(x.permute(0, 3, 1, 2))
-        if hasattr(self, "res6"):
-            h = self.res6(h)
-        if hasattr(self, "res7"):
-            h = self.res7(h)
+        h = self.features(images, vbp)
+        if vbp is not None:
+            vbp.append(h)
         h = h.mean(dim=(2, 3))  # global average pool
         theta = self.param_predictor(h.float()).reshape(-1, 2, 3)
         return rotation_dropout(
@@ -127,16 +154,18 @@ class Localizer(nn.Module):
         self,
         images: torch.Tensor,
         generator: torch.Generator | None = None,
+        vbp: list | None = None,
     ) -> tuple[torch.Tensor, torch.Tensor]:
         """Args:
           images: (N, H, W, 3) RGB in [0, 1], NHWC.
           generator: rotation-dropout draw in train mode at 0 < ratio < 1.
+          vbp: a list to record VisualBackprop's inputs and anchor in.
 
         Returns:
           (rois, theta): (N, out_h, out_w, C) crops of the *unnormalized*
           images, and the (N, 2, 3) affine params.
         """
-        theta = self.predict_theta(images, generator)
+        theta = self.predict_theta(images, generator, vbp)
         rois = spatial_transform(
             images, theta, self.out_size, method=self.sampler_method(images)
         )
@@ -146,3 +175,19 @@ class Localizer(nn.Module):
             weights = rois.new_tensor(GRAYSCALE_WEIGHTS)
             rois = (rois * weights).sum(dim=-1, keepdim=True)
         return rois, theta
+
+    def vbp_ladder(self) -> tuple[tuple, ...]:
+        return localizer_vbp_ladder(self.n_layers, self.input_size)
+
+
+def localizer_vbp_ladder(n_layers: int, input_size: Size) -> tuple[tuple, ...]:
+    """The static VisualBackprop ladder of a localizer configuration (port
+    of ``loans_tpu.models.localizer.localizer_vbp_ladder``): the backbone's,
+    then ``res6``'s above 224 and ``res7``'s above 300."""
+    steps = list(resnet_vbp_ladder(n_layers))
+    extra = stage_ladder(2, 2, bottleneck=n_layers not in (18, 34))
+    if input_size.height > 224:
+        steps.extend(extra)
+        if input_size.height > 300:
+            steps.extend(extra)
+    return tuple(steps)

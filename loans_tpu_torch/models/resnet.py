@@ -13,6 +13,14 @@ Architectural details kept from the JAX reference:
   * bottleneck downsampling strides live on the first 1x1 conv
     (caffe-style).
 
+VisualBackprop: every ``forward`` takes an optional list ``vbp``; given
+one, it appends the channel mean (N, 1, h, w) of each main-branch
+convolution's or pooling's input, in call order, at the points where the
+JAX modules ``sow`` it into their ``vbp`` collection. The order is
+``loans_tpu.insights.visual_backprop.flatten_vbp``'s, and
+``resnet_vbp_ladder`` gives each entry's (kind, kernel, stride, pad).
+Without the list nothing is recorded and nothing extra is computed.
+
 Submodules carry the flax module names of the JAX package (``Conv_0``,
 ``BatchNorm_0``, ``ConvBN_1``, ``BottleNeckStage_0``, ...), so a
 ``state_dict`` key is the flax parameter path with ``/`` replaced by
@@ -122,6 +130,12 @@ def batch_norm(ch: int) -> BatchNorm2d:
     return BatchNorm2d(ch, eps=2e-5, momentum=0.1)
 
 
+def _record(vbp: list | None, x: torch.Tensor) -> None:
+    """Append ``x``'s channel mean to ``vbp`` when one is given."""
+    if vbp is not None:
+        vbp.append(x.mean(dim=1, keepdim=True))
+
+
 def _add(module: nn.Module, child: nn.Module) -> nn.Module:
     """Register ``child`` under flax's auto name ``<Class>_<k>``."""
     cls = type(child).__name__
@@ -154,8 +168,11 @@ class BasicA(nn.Module):
         self.ConvBN_1 = ConvBN(ch, ch, 3, 1, 1)
         self.ConvBN_2 = ConvBN(in_ch, ch, 3, stride, 1)
 
-    def forward(self, x):
-        h1 = self.ConvBN_1(F.relu(self.ConvBN_0(x)))
+    def forward(self, x, vbp: list | None = None):
+        _record(vbp, x)
+        h1 = F.relu(self.ConvBN_0(x))
+        _record(vbp, h1)
+        h1 = self.ConvBN_1(h1)
         return F.relu(h1 + self.ConvBN_2(x))
 
 
@@ -167,8 +184,11 @@ class BasicB(nn.Module):
         self.ConvBN_0 = ConvBN(ch, ch, 3, 1, 1)
         self.ConvBN_1 = ConvBN(ch, ch, 3, 1, 1)
 
-    def forward(self, x):
-        h = self.ConvBN_1(F.relu(self.ConvBN_0(x)))
+    def forward(self, x, vbp: list | None = None):
+        _record(vbp, x)
+        h = F.relu(self.ConvBN_0(x))
+        _record(vbp, h)
+        h = self.ConvBN_1(h)
         return F.relu(h + x)
 
 
@@ -182,9 +202,12 @@ class BottleNeckA(nn.Module):
         self.ConvBN_2 = ConvBN(ch, out_ch, 1, 1, 0)
         self.ConvBN_3 = ConvBN(in_ch, out_ch, 1, stride, 0)
 
-    def forward(self, x):
+    def forward(self, x, vbp: list | None = None):
+        _record(vbp, x)
         h1 = F.relu(self.ConvBN_0(x))
+        _record(vbp, h1)
         h1 = F.relu(self.ConvBN_1(h1))
+        _record(vbp, h1)
         h1 = self.ConvBN_2(h1)
         return F.relu(h1 + self.ConvBN_3(x))
 
@@ -198,9 +221,12 @@ class BottleNeckB(nn.Module):
         self.ConvBN_1 = ConvBN(ch, ch, 3, 1, 1)
         self.ConvBN_2 = ConvBN(ch, out_ch, 1, 1, 0)
 
-    def forward(self, x):
+    def forward(self, x, vbp: list | None = None):
+        _record(vbp, x)
         h = F.relu(self.ConvBN_0(x))
+        _record(vbp, h)
         h = F.relu(self.ConvBN_1(h))
+        _record(vbp, h)
         return F.relu(self.ConvBN_2(h) + x)
 
 
@@ -214,9 +240,9 @@ class BasicStage(nn.Module):
             _add(self, BasicB(ch))
         self.out_ch = ch
 
-    def forward(self, x):
+    def forward(self, x, vbp: list | None = None):
         for block in self.children():
-            x = block(x)
+            x = block(x, vbp)
         return x
 
 
@@ -230,9 +256,9 @@ class BottleNeckStage(nn.Module):
             _add(self, BottleNeckB(ch, out_ch))
         self.out_ch = out_ch
 
-    def forward(self, x):
+    def forward(self, x, vbp: list | None = None):
         for block in self.children():
-            x = block(x)
+            x = block(x, vbp)
         return x
 
 
@@ -270,12 +296,14 @@ class ResNet(nn.Module):
             for b, ch, s in zip(blocks, chs, strides):
                 in_ch = _add(self, BasicStage(in_ch, b, ch, s)).out_ch
 
-    def forward(self, x):
+    def forward(self, x, vbp: list | None = None):
+        _record(vbp, x)
         h = F.relu(self.BatchNorm_0(self.Conv_0(x)))
+        _record(vbp, h)
         h = cover_all_max_pool(h, 3, 2)
         for name, stage in self.named_children():
             if "Stage_" in name:
-                h = stage(h)
+                h = stage(h, vbp)
         if self.n_layers == 20:
             h = h.mean(dim=(2, 3))
         return h
@@ -287,3 +315,39 @@ class ResNet(nn.Module):
         if self.n_layers in _SMALL:
             return 64
         return 2048
+
+
+# (kind, kernel, stride, pad) of each recorded input, input to feature map
+STEM_LADDER = (
+    ("conv", 7, 2, 3),
+    ("pool", 3, 2, 0),
+)
+
+
+def _block_ladder(stride: int, bottleneck: bool) -> list[tuple]:
+    if bottleneck:
+        return [("conv", 1, stride, 0), ("conv", 3, 1, 1), ("conv", 1, 1, 0)]
+    return [("conv", 3, stride, 1), ("conv", 3, 1, 1)]
+
+
+def stage_ladder(n_blocks: int, stride: int, bottleneck: bool) -> list[tuple]:
+    """The ladder of one stage: its first block at ``stride``, the rest at 1."""
+    steps = _block_ladder(stride, bottleneck)
+    for _ in range(n_blocks - 1):
+        steps.extend(_block_ladder(1, bottleneck))
+    return steps
+
+
+def resnet_vbp_ladder(n_layers: int) -> tuple[tuple, ...]:
+    """The static (kind, kernel, stride, pad) ladder of a ResNet from its
+    input to its feature map along the main branch, one step per recorded
+    input (port of ``loans_tpu.models.resnet.resnet_vbp_ladder``)."""
+    blocks = BLOCK_CONFIGS[n_layers]
+    steps = list(STEM_LADDER)
+    if n_layers in _SMALL:
+        strides = (1, 2, 2)
+    else:
+        strides = (1, 2, 2, 2) + (2, 2) * (n_layers == 20)
+    for n, s in zip(blocks, strides):
+        steps.extend(stage_ladder(n, s, n_layers in _BOTTLENECK))
+    return tuple(steps)

@@ -150,3 +150,24 @@ def test_accuracy_accumulator_matches_jax():
         assert got.add(pred, gt) == want.add(pred, gt)
     assert got.summary() == want.summary()
     assert 0 < got.hits < got.n_images
+
+
+def test_map_evaluator_warms_a_rotation_dropout_localizer_like_jax(setup):
+    """``bn_warmup`` on a localizer with rotation dropout at 0 < ratio < 1:
+    the warm-up forwards run in train mode, where the port's rotation
+    dropout needs a generator and raised without one; they now run the
+    backbone alone (``Localizer.features``), which is all the statistics
+    see, and the result is JAX's (which draws from ``key(0)`` there)."""
+    _, jstate_, loc, batches = setup
+    jl = jmodels.Localizer(out_size=JSize(CROP, CROP), n_layers=18, input_size=JSize(IMG, IMG),
+                           rotation_dropout_ratio=0.5)
+    want = jintraining.MAPEvaluator(jl, JSize(IMG, IMG), max_batches=N_BATCHES, bn_warmup=2)(
+        jstate_, iter(batches))
+    rotated = models.Localizer(out_size=Size(CROP, CROP), n_layers=18, input_size=Size(IMG, IMG),
+                               rotation_dropout_ratio=0.5)
+    rotated.load_state_dict(loc.state_dict())
+    got = MAPEvaluator(Size(IMG, IMG), max_batches=N_BATCHES, bn_warmup=2)(
+        create_train_state(rotated), iter([(torch.from_numpy(b[0]), b[1]) for b in batches]))
+    assert set(got) == set(want)
+    assert abs(got["mean_iou"] - want["mean_iou"]) <= 1e-5
+    assert got["map"] == want["map"] and got["ap/object"] == want["ap/object"]

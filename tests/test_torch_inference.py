@@ -143,11 +143,50 @@ def test_without_assessor_scores_are_one(log_dir):
 
 
 def test_unported_options_and_missing_snapshots_raise(log_dir, tmp_path):
-    with pytest.raises(NotImplementedError, match="VisualBackprop"):
-        LocalizerInference(log_dir, device="cpu", use_visual_backprop=True)
+    """An SSD log dir (ROADMAP.md Queue 1 item 12) names the models the
+    port has; a log dir without localizer snapshots raises."""
+    ssd = tmp_path / "ssd"
+    checkpoint.save_manifest(str(ssd), {"localizer": {"model": "SSD300", "kwargs": {}}})
+    with pytest.raises(KeyError, match="SSD300.*Localizer"):
+        LocalizerInference(str(ssd), device="cpu")
     checkpoint.save_manifest(str(tmp_path), MANIFEST)
     with pytest.raises(FileNotFoundError, match="Localizer"):
         LocalizerInference(str(tmp_path), device="cpu")
+
+
+def test_visual_backprop_is_served_like_jax(log_dir):
+    """``use_visual_backprop=True`` serves the heat map in the last tuple
+    position, as the JAX package does: one (H, W, 3) uint8 gray image per
+    frame from ``localize_batch``, one from ``localize``, and the other
+    positions unchanged. The float heat maps agree within 1e-5 (they lie in
+    [0, 1]; see ``test_torch_visual_backprop.py``), so the uint8 images,
+    which truncate 255 * heat, differ by at most one step where a value
+    sits within that of an integer."""
+    frames = scenes(6, 3)
+    ref = JaxInference(log_dir, use_assessor=True, score_threshold=0.0, use_visual_backprop=True)
+    port = LocalizerInference(log_dir, device="cpu", use_assessor=True, score_threshold=0.0,
+                              use_visual_backprop=True)
+    plain = LocalizerInference(log_dir, device="cpu", use_assessor=True, score_threshold=0.0)
+    want = ref.localize_batch(frames)
+    got = port.localize_batch(frames)
+    for g, p in zip(got[:3], plain.localize_batch(frames)[:3]):
+        np.testing.assert_array_equal(g, p)  # boxes, rois, scores: as without VisualBackprop
+    np.testing.assert_allclose(got[0], np.asarray(want[0]), atol=1e-3)
+    assert len(got[3]) == len(want[3]) == 3
+    for g, w in zip(got[3], want[3]):
+        assert g.shape == w.shape == (64, 64, 3) and g.dtype == np.uint8
+        assert int(np.abs(g.astype(int) - w.astype(int)).max()) <= 1
+        assert np.array_equal(g[..., 0], g[..., 2])  # gray
+    assert int(np.ptp(got[3][0])) > 100  # a heat map, not a constant
+    heat = port._predict(frames)[3].numpy()
+    want_heat = np.asarray(ref._predict(ref._variables, jnp.asarray(frames))[3])
+    assert heat.shape == (3, 64, 64, 1)
+    np.testing.assert_allclose(heat, want_heat, rtol=0, atol=1e-5)
+    boxes, rois, scores, heat_img = port.localize(frames[1])
+    want_boxes, _, _, want_img = ref.localize(frames[1])
+    assert boxes.shape == (1, 4) and rois.shape == (1, 16, 16, 3) and scores.shape == (1,)
+    np.testing.assert_allclose(boxes, np.asarray(want_boxes), atol=1e-3)
+    assert heat_img.shape == (64, 64, 3) and int(np.abs(heat_img.astype(int) - want_img.astype(int)).max()) <= 1
 
 
 def test_missing_assessor_snapshot_is_served_with_initial_parameters(log_dir, tmp_path):

@@ -2,11 +2,14 @@
 JAX, flax or ``loans_tpu`` dependencies installed.
 
 A subprocess blocks ``jax``, ``flax`` and ``loans_tpu`` imports, and
-``PIL`` and ``cv2``, which the card's machine lacks too; imports every
-module of ``loans_tpu_torch`` (the training CLI and the synthetic world
-among them), generates a tiny synthetic world, serves a tiny log dir on the CPU and
-runs one tiny alternating training step, then one with rotation dropout at
-ratio 1.0 on the plain rotated crop (``sampler="rotated"``).
+``PIL``, ``cv2`` and ``matplotlib``, which the card's machine lacks too;
+imports every module of ``loans_tpu_torch`` (the training and evaluation
+CLIs, the bench, the synthetic world and the renders among them), generates
+a tiny synthetic world, serves a tiny log dir on the CPU, with and without
+VisualBackprop, sweeps it with the evaluation CLI (renders, deteval XML and
+the report without matplotlib), and runs one tiny alternating training
+step, then one with rotation dropout at ratio 1.0 on the plain rotated crop
+(``sampler="rotated"``).
 It also checks that importing the package never runs ``nvcc`` and that
 the CUDA kernels of both crops refuse CPU tensors. The sources of the port
 and of ``chip_smoke.py``, which runs on the card, name none of them in an
@@ -31,7 +34,7 @@ class _Spy(_Popen):
         spawned.append(args)
         super().__init__(args, *a, **k)
 subprocess.Popen = _Spy
-for name in ("jax", "jaxlib", "flax", "optax", "loans_tpu", "PIL", "cv2"):
+for name in ("jax", "jaxlib", "flax", "optax", "loans_tpu", "PIL", "cv2", "matplotlib"):
     sys.modules[name] = None  # any import of them raises ImportError
 
 import importlib, pkgutil, tempfile
@@ -72,6 +75,24 @@ boxes, rois, scores, heat = inf.localize_batch(frames)
 assert boxes.shape == (3, 1, 4) and rois.shape == (3, 8, 8, 3) and scores.shape == (3,)
 assert np.isfinite(boxes).all() and np.isfinite(rois).all()
 assert ((scores > 0) & (scores < 1)).all() and heat is None
+vbp_inf = LocalizerInference(log_dir, device="cpu", use_assessor=True, score_threshold=0.0,
+                             use_visual_backprop=True)
+vbp_boxes, _, _, heat = vbp_inf.localize_batch(frames)
+assert np.array_equal(vbp_boxes, boxes) and len(heat) == 3
+assert heat[0].shape == (32, 32, 3) and heat[0].dtype == np.uint8
+
+import contextlib, io, os
+from loans_tpu_torch.cli import evaluate
+out_dir = tempfile.mkdtemp()
+report = io.StringIO()
+with contextlib.redirect_stdout(report):
+    results = evaluate.main(["synthetic:4", log_dir, "-b", "2", "-a", "--bn-warmup", "1", "--device", "cpu",
+                             "--save-predictions", out_dir, "--deteval", out_dir])
+assert [e["snapshot_name"] for e in results.entries] == ["Localizer_1.pt"], report.getvalue()
+assert 0.0 <= results.entries[0]["mean_assessor_score"] <= 1.0
+assert sorted(os.listdir(os.path.join(out_dir, "1"))) == ["0.png", "1.png", "2.png", "3.png"]
+assert os.path.exists(os.path.join(out_dir, "deteval_1.xml"))
+assert "no metric curve drawn" in report.getvalue() and "best snapshot: Localizer_1.pt" in report.getvalue()
 
 for kernel in (sample_separable_kernel, sample_rotated_kernel):
     try:
@@ -108,7 +129,10 @@ assert moved[[1, 3]].all(), loc.param_predictor.bias  # theta01, theta10 train
 assert sample_rotated_kernel.launches == 0 and sample_rotated_kernel.launches_bwd_theta == 0
 assert not spawned, spawned
 assert not [m for m, v in sys.modules.items()
-            if v is not None and m.split(".")[0] in ("jax", "flax", "loans_tpu", "PIL", "cv2")]
+            if v is not None and m.split(".")[0] in ("jax", "flax", "loans_tpu", "PIL", "cv2", "matplotlib")]
+import shutil
+shutil.rmtree(out_dir)
+shutil.rmtree(log_dir)
 print("NO_JAX_OK")
 """
 
@@ -152,3 +176,16 @@ def test_training_cli_path_imports_no_cv2():
     for sub in ("data", "evaluation", "train", "models", "ops"):
         paths += list((PACKAGE / sub).rglob("*.py"))
     assert not _imports(paths, ("cv2",))
+
+
+def test_evaluation_path_imports_no_cv2_or_matplotlib():
+    """The evaluation CLI's and the bench's path (the loader, deteval, the
+    sweep, VisualBackprop and the renders) and ``chip_smoke.py`` name
+    neither cv2 nor matplotlib in an import (``Evaluator.plot`` loads
+    matplotlib by name where it is installed), nor jax, flax, loans_tpu or
+    PIL."""
+    paths = [PACKAGE / "cli" / "evaluate.py", PACKAGE / "bench.py", PACKAGE / "data" / "loader.py",
+             ROOT / "chip_smoke.py"]
+    for sub in ("evaluation", "insights", "models"):
+        paths += list((PACKAGE / sub).rglob("*.py"))
+    assert not _imports(paths, ("cv2", "matplotlib", "jax", "jaxlib", "flax", "optax", "loans_tpu", "PIL"))
