@@ -11,6 +11,7 @@ flax leaf                   torch leaf           value
 ``Dense/kernel`` (2-D)      ``weight``           transposed
 ``bias``                    ``bias``             as is
 ``BatchNorm_k/scale``       ``weight``           as is
+``L2Norm_0/scale`` (SSD)    ``weight``           as is
 batch_stats ``mean``        ``running_mean``     as is
 batch_stats ``var``         ``running_var``      as is
 ==========================  ===================  ======================
@@ -114,4 +115,11 @@ def localizer_state_dict(
 def assessor_state_dict(model: nn.Module, params: Mapping) -> dict[str, torch.Tensor]:
     """``state_dict`` for a port ``ResnetAssessor`` from the JAX
     ResnetAssessor's ``params`` (it has no batch statistics)."""
+    return to_state_dict(model, params)
+
+
+def ssd_state_dict(model: nn.Module, params: Mapping) -> dict[str, torch.Tensor]:
+    """``state_dict`` for a port ``SSD`` (``SSD300`` / ``SSD512``) from the
+    JAX SSD's ``params`` (it has no batch statistics; L2Norm's ``scale``
+    leaf becomes ``VGG16Extractor_0.L2Norm_0.weight``)."""
     return to_state_dict(model, params)

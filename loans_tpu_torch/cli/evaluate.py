@@ -2,13 +2,15 @@
 
     python -m loans_tpu_torch.cli.evaluate <gt> <log_dir> [prefix] --device cuda
 
-Sweeps every ``<prefix>*.pt`` snapshot of a training log dir against a
-labeled dataset, resumably (scored snapshots are skipped; ``--force-reset``
-starts again), then plots the metric curves and reports the best snapshot.
-The flags and defaults are the JAX CLI's, plus ``--device`` (default
-``cuda``; ``--device cpu`` runs the plain PyTorch versions of the
-kernels). Only the synthetic ground truth (``synthetic[:N]``) is ported:
-image files are refused with the item that lifts the refusal.
+Sweeps every ``<prefix>*.pt`` snapshot of a training log dir (a localizer's
+or an SSD's; an SSD's prefix defaults to its model name, ``SSD300_``)
+against a labeled dataset, resumably (scored snapshots are skipped;
+``--force-reset`` starts again), then plots the metric curves and reports
+the best snapshot. The flags and defaults are the JAX CLI's, plus
+``--device`` (default ``cuda``; ``--device cpu`` runs the plain PyTorch
+versions of the kernels). Only the synthetic ground truth
+(``synthetic[:N]``) is ported: image files, and renders of an SSD log dir,
+are refused with the item that lifts the refusal.
 """
 
 from __future__ import annotations
@@ -78,7 +80,7 @@ def main(argv=None):
     """Sweep; returns the ``EvalResults``."""
     from loans_tpu_torch.cli.train_localizer import REFUSED, _is_synthetic
     from loans_tpu_torch.data.loader import DataLoader, padded_collate
-    from loans_tpu_torch.evaluation.evaluator import Evaluator
+    from loans_tpu_torch.evaluation.evaluator import SSD_RENDERS_REFUSED, Evaluator
 
     args = get_parser().parse_args(argv)
     if not _is_synthetic(args.gt):
@@ -93,6 +95,8 @@ def main(argv=None):
         use_assessor=args.assessor,
         device=args.device,
     )
+    if evaluator.is_ssd and args.save_predictions:
+        raise SystemExit(f"the port cannot run this: {SSD_RENDERS_REFUSED}")
     ds = build_dataset(args, evaluator.image_size)
 
     def batches_factory():

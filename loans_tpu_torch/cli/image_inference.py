@@ -3,8 +3,11 @@
 Iterate images (globs or a JSON list), localize each, draw the results
 and save them to ``--output-dir``, optionally gated by the assessor
 score, and with ``-v`` each frame's VisualBackprop heat map, resized to
-the frame, as ``<stem>_visual_backprop<ext>``. The log dir needs the port's ``.pt`` snapshots
-(``tools/export_torch_snapshot.py`` writes them from a JAX training run).
+the frame, as ``<stem>_visual_backprop<ext>``. An SSD log dir is served by
+``SSDInference`` (``inference.load_inference``), which draws every
+detection over ``--score-threshold``. The log dir needs the port's ``.pt``
+snapshots (``tools/export_torch_snapshot.py`` writes them from a JAX
+training run).
 
     python -m loans_tpu_torch.cli.image_inference <log_dir> -i 'imgs/*.png' -a
 """
@@ -49,10 +52,10 @@ def iter_image_paths(args):
 def main(argv=None):
     import cv2
 
-    from loans_tpu_torch.inference.localizer import LocalizerInference
+    from loans_tpu_torch.inference import load_inference
 
     args = get_parser().parse_args(argv)
-    localizer = LocalizerInference(
+    localizer = load_inference(
         args.model_dir,
         device=args.device,
         snapshot=args.snapshot,
@@ -81,7 +84,10 @@ def main(argv=None):
                 os.path.join(args.output_dir, f"{stem}_visual_backprop{ext}"),
                 cv2.resize(heat[..., ::-1], (frame.shape[1], frame.shape[0])),
             )
-        print(f"{path}: box={boxes[0].tolist()} score={float(scores[0]):.3f}")
+        if len(boxes):
+            print(f"{path}: box={boxes[0].tolist()} score={float(scores[0]):.3f}")
+        else:
+            print(f"{path}: no detections")
 
 
 if __name__ == "__main__":

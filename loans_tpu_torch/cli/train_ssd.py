@@ -1,0 +1,210 @@
+"""Supervised SSD training CLI (port of ``loans_tpu/cli/train_ssd.py``).
+
+    python -m loans_tpu_torch.cli.train_ssd synthetic:256 synthetic:32 --model ssd300 -b 32
+
+SSD300 or SSD512 with one foreground class on the synthetic world: the
+labeled train scenes, made at the model's input size, are uploaded to the
+device once as a uint8 pool with their gt boxes, and each call of K steps
+(``train.steps.pooled_step`` over ``data.ssd_device.SSDPooledBody``)
+gathers its batches there, augments them on the device (the expand, crop
+and resize window is K1's forward on the card) and encodes the multibox
+targets, then trains on the multibox loss with Adam, doubled bias
+gradients and weight decay (``train.ssd_steps.SSDAdam``). VOC mAP of the
+labeled val scenes is logged at every ``--eval-interval``.
+``<log_dir>/<timestamp>_<name>`` receives ``manifest.json``, the metrics
+``log`` and ``<SSD300|SSD512>_<iter>.pt`` snapshots, which
+``inference.SSDInference`` serves and ``cli.evaluate`` sweeps.
+
+The flags are the JAX CLI's, plus ``--device`` (default ``cuda``;
+``--device cpu`` runs the plain PyTorch crop). What the port lacks is
+refused with the ROADMAP.md item that lifts the refusal (``REFUSED``).
+"""
+
+from __future__ import annotations
+
+import argparse
+import datetime
+import functools
+import os
+
+import numpy as np
+import torch
+
+# flag -> why the port refuses it (with the ROADMAP.md item that lifts it)
+REFUSED = {
+    "files": "gt json files need the host datasets and a decoder (ROADMAP.md Queue 1 step 9b); "
+             "use synthetic[:N]",
+    "device_data_off": "--device-data off needs the host SSDTransform and loader (ROADMAP.md Queue 1 step 9b)",
+    "plot_interval": "--plot-interval needs the SSD plot hook and the BBoxPlotter (ROADMAP.md Queue 1 item 13)",
+    "num_workers": "--num-workers sets the host loader's workers, and the port's SSD data live on the "
+                   "device (the host loader comes with ROADMAP.md Queue 1 step 9b)",
+}
+
+
+def get_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(description="train a supervised SSD (PyTorch/CUDA)")
+    p.add_argument("train_file", help="'synthetic[:N]' for generated labeled scenes")
+    p.add_argument("val_file", help="'synthetic[:N]' for generated labeled scenes")
+    p.add_argument("--model", choices=["ssd300", "ssd512"], default="ssd300")
+    p.add_argument("--batch-size", "-b", type=int, default=8)
+    p.add_argument("--learning-rate", "-lr", type=float, default=1e-4)
+    p.add_argument("--iterations", "-it", type=int, default=1000)
+    p.add_argument("--log-dir", "-l", default="logs")
+    p.add_argument("--log-name", "-ln", default="ssd_training")
+    p.add_argument("--log-interval", type=int, default=100)
+    p.add_argument("--snapshot-interval", "-si", type=int, default=5000)
+    p.add_argument("--eval-interval", type=int, default=1000)
+    p.add_argument("--eval-batches", type=int, default=8)
+    p.add_argument("--resume", default=None, help="a training snapshot (.pt) of this model")
+    p.add_argument("--pretrained-model", default=None,
+                   help="a port .pt snapshot whose matching entries are loaded")
+    p.add_argument("--no-augment", action="store_true")
+    p.add_argument("--bf16", action="store_true",
+                   help="bfloat16 convolutions (parameters, the optimizer, L2Norm and the crop stay float32)")
+    p.add_argument("--plot-interval", type=int, default=0, help="detection plots (0 = off; not ported)")
+    p.add_argument("--num-workers", type=int, default=None, help="host loader workers (not ported)")
+    p.add_argument("--device-data", choices=["auto", "on", "off"], default="auto",
+                   help="keep the scene pool in device memory and augment there ('off' is not ported)")
+    p.add_argument("--steps-per-call", type=int, default=0, help="train iterations per step call (0 = 8)")
+    p.add_argument("--synthetic-assets", type=int, default=0, metavar="N",
+                   help="share one procedural asset world (asset seed = seed + 9973) between synthetic "
+                   "train and val")
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--device", default="cuda", help="torch device to train on (default cuda)")
+    return p
+
+
+def refusals(args) -> list[str]:
+    """Why this run cannot be served by the port (empty when it can)."""
+    from loans_tpu_torch.cli.train_localizer import _is_synthetic
+
+    out = [f"{spec!r}: {REFUSED['files']}" for spec in (args.train_file, args.val_file) if not _is_synthetic(spec)]
+    if args.device_data == "off":
+        out.append(REFUSED["device_data_off"])
+    if args.plot_interval > 0:
+        out.append(REFUSED["plot_interval"])
+    if args.num_workers is not None:
+        out.append(REFUSED["num_workers"])
+    return out
+
+
+def build_model(args, device: torch.device):
+    """The SSD of ``--model`` on ``device``, its weights drawn from
+    ``--seed``."""
+    from loans_tpu_torch.models import SSD300, SSD512
+
+    torch.manual_seed(args.seed)
+    dtype = torch.bfloat16 if args.bf16 else torch.float32
+    return (SSD300 if args.model == "ssd300" else SSD512)(n_fg_class=1, dtype=dtype).to(device)
+
+
+def build_pools(args, size: int) -> tuple[dict[str, np.ndarray], object]:
+    """The train pool ``{'scenes' (N, S, S, 3) uint8, 'boxes' (N, 1, 4)
+    pixel yxyx, 'valid' (N, 1)}`` and the val dataset, as the JAX CLI
+    builds them (``train_ssd.py:204-226, 257-274``): the same seeds and
+    worlds, scenes at the model's input size."""
+    from loans_tpu_torch.cli.train_localizer import _synthetic_n
+    from loans_tpu_torch.data.synthetic import SyntheticLocalizerDataset
+
+    asset_kw = {}
+    if args.synthetic_assets:
+        asset_kw = dict(asset_seed=args.seed + 9973, n_assets=args.synthetic_assets)
+    raw = SyntheticLocalizerDataset(
+        _synthetic_n(args.train_file, 256), image_size=(size, size), seed=args.seed, labeled=True,
+        output_dtype="uint8", **asset_kw,
+    )
+    examples = [raw.get_example(i) for i in range(len(raw))]
+    pool = {
+        "scenes": np.stack([e[0] for e in examples]),
+        "boxes": np.stack([e[1][0] for e in examples])[:, None, :].astype(np.float32),
+        "valid": np.ones((len(raw), 1), bool),
+    }
+    val = SyntheticLocalizerDataset(
+        _synthetic_n(args.val_file, 32), image_size=(size, size), seed=args.seed + 1, labeled=True, **asset_kw,
+    )
+    return pool, val
+
+
+def main(argv=None) -> str:
+    """Train; returns the run's log dir."""
+    from loans_tpu_torch.data.device_data import device_chunk_batches, device_eval_batches
+    from loans_tpu_torch.data.ssd_device import SSDPooledBody
+    from loans_tpu_torch.evaluation.ssd_eval import SSDEvaluator
+    from loans_tpu_torch.inference.localizer import set_precision
+    from loans_tpu_torch.train import Trainer, checkpoint, create_ssd_train_state, pooled_step
+
+    args = get_parser().parse_args(argv)
+    refused = refusals(args)
+    if refused:
+        raise SystemExit("the port cannot run this: " + "; ".join(refused))
+    device = torch.device(args.device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise SystemExit("--device cuda but torch.cuda.is_available() is false; pass --device cpu")
+    set_precision()
+
+    model = build_model(args, device)
+    size = model.input_size
+    coder = model.coder()
+    timestamp = datetime.datetime.now().strftime("%Y-%m-%d_%H-%M-%S")
+    log_dir = os.path.join(args.log_dir, f"{timestamp}_{args.log_name}")
+    os.makedirs(log_dir, exist_ok=True)
+    model_name = args.model.upper()
+    config = dict(vars(args))
+    checkpoint.save_manifest(log_dir, {
+        "localizer": {"model": model_name, "kwargs": {"n_fg_class": 1}},
+        "snapshot_names": [model_name],
+        "config": config,
+    })
+    state = create_ssd_train_state(model, args.learning_rate)
+    if args.pretrained_model:
+        checkpoint.restore_params(args.pretrained_model, model)
+
+    pool, val_ds = build_pools(args, size)
+    steps_per_call = args.steps_per_call or 8
+    device_batches = device_chunk_batches(
+        {"train": pool}, args.batch_size, steps_per_call, seed=args.seed, device=device)
+    body = SSDPooledBody(coder, size, augment=not args.no_augment)
+    step = functools.partial(pooled_step, steps_per_call=steps_per_call, body=body)
+    print(f"data: pool on {device} {sum(a.nbytes for a in pool.values()) / 2**20:.1f} MiB (uint8 scenes)")
+
+    evaluator = SSDEvaluator(size, coder, max_batches=args.eval_batches)
+    val_batches = device_eval_batches(val_ds, max(args.batch_size // 2, 1), device)
+    last_eval = [0]  # bucket 0 = before the first --eval-interval point
+
+    def eval_fn(trainer, iteration):
+        if not args.eval_interval:
+            return {}
+        bucket = iteration // args.eval_interval
+        if bucket == last_eval[0]:
+            return {}
+        last_eval[0] = bucket
+        return evaluator(trainer.loc_state, iter(val_batches))
+
+    trainer = Trainer(
+        step,
+        state,
+        None,
+        device_batches,
+        log_dir,
+        max_iterations=args.iterations,
+        generator=torch.Generator(device=device).manual_seed(args.seed + 17),
+        config=config,
+        snapshot_interval=args.snapshot_interval,
+        log_interval=args.log_interval,
+        eval_fn=eval_fn,
+        snapshot_names=(model_name,),
+        steps_per_call=steps_per_call,
+    )
+    try:
+        if args.resume:
+            trainer.resume(loc_path=args.resume)
+        print(f"training {model_name} in {log_dir} on {device}")
+        trainer.run()
+    finally:
+        device_batches.close()
+    print(f"done at iteration {trainer.iteration}; log dir: {log_dir}")
+    return log_dir
+
+
+if __name__ == "__main__":
+    main()

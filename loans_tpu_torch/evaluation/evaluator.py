@@ -1,10 +1,12 @@
 """Offline snapshot sweep with resume (port of
-``loans_tpu/evaluation/evaluator.py``, localizer log dirs).
+``loans_tpu/evaluation/evaluator.py``).
 
 ``Evaluator`` scores every ``<prefix><iteration>.pt`` snapshot of a
-training log dir against a labeled dataset, in iteration order: mean IoU,
-VOC mAP and AP of the object class (``MAPEvaluator``), and with the
-assessor the mean score of the predicted crops. Results go to
+training log dir against a labeled dataset, in iteration order: for a
+localizer, mean IoU, VOC mAP and AP of the object class
+(``MAPEvaluator``), and with the assessor the mean score of the predicted
+crops; for an SSD (``SSD300`` / ``SSD512`` manifests), VOC mAP of its
+detections (``SSDEvaluator``). Results go to
 ``eval_results.json``, rewritten atomically after each snapshot; a
 snapshot already there is skipped unless ``force_reset``. A snapshot that
 fails is reported with its traceback and the sweep goes on. Optionally each
@@ -12,11 +14,13 @@ snapshot's predictions are rendered over the gt boxes as PNGs and written
 as deteval XML. ``plot`` draws the metric curves (with matplotlib, where
 installed) and reports the best snapshot.
 
-The models are rebuilt from ``manifest.json`` and run on ``device``; each
-pass over the data (scoring, renders, deteval) runs one eval-mode forward
-per batch, each of which crops once (K1's forward kernel on the card, or
-K2's for a ``sampler="rotated_pallas"`` localizer). SSD log dirs are
-ROADMAP.md Queue 1 item 12 and are refused.
+The models are rebuilt from ``manifest.json`` and run on ``device``; for
+a localizer each pass over the data (scoring, renders, deteval) runs one
+eval-mode forward per batch, each of which crops once (K1's forward kernel
+on the card, or K2's for a ``sampler="rotated_pallas"`` localizer). An SSD
+crops nothing, has no BatchNorm to warm up and, as in the JAX package, no
+deteval export; its renders would draw score text, which needs a font
+the port does not have (``SSD_RENDERS_REFUSED``).
 """
 
 from __future__ import annotations
@@ -33,13 +37,19 @@ import torch
 
 from loans_tpu_torch.evaluation.deteval import DetEvalWriter
 from loans_tpu_torch.evaluation.intraining import MAPEvaluator
+from loans_tpu_torch.evaluation.ssd_eval import SSDEvaluator
 from loans_tpu_torch.inference.localizer import set_precision
 from loans_tpu_torch.insights.rendering import draw_boxes_on_image, write_png
-from loans_tpu_torch.ops.geometry import corners_to_aabb, theta_corners
+from loans_tpu_torch.ops.geometry import Size, corners_to_aabb, theta_corners
 from loans_tpu_torch.train import checkpoint
 from loans_tpu_torch.train.state import create_train_state
 from loans_tpu_torch.train.steps import make_eval_step, to_float01
 from loans_tpu_torch.utils.registry import build_assessor, build_model
+
+SSD_RENDERS_REFUSED = (
+    "--save-predictions on an SSD log dir: the JAX package's SSD renders draw score text with "
+    "Pillow's font, which the port's renders do not have (ROADMAP.md Queue 1 item 13)"
+)
 
 
 class EvalResults:
@@ -97,23 +107,26 @@ class Evaluator:
         self.device = torch.device(device)
         self.manifest = checkpoint.load_manifest(log_dir)
         loc_cfg = self.manifest["localizer"]
-        if loc_cfg["model"].upper().startswith("SSD"):
-            raise NotImplementedError(
-                f"{log_dir} holds an SSD model ({loc_cfg['model']}); SSD evaluation is not "
-                "ported yet (ROADMAP.md Queue 1 item 12)"
-            )
+        self.is_ssd = loc_cfg["model"].upper().startswith("SSD")
         self.localizer = build_model(loc_cfg["model"], **loc_cfg["kwargs"]).to(self.device)
-        self.image_size = self.localizer.input_size
         self.assessor = None
-        if use_assessor and "assessor" in self.manifest:
-            names = self.manifest.get("snapshot_names", [])
-            prefix = names[-1] if len(names) > 1 else "ResnetAssessor"
-            snaps = checkpoint.list_snapshots(log_dir, prefix + "_")
-            if snaps:
-                assessor = build_assessor(self.manifest["assessor"], self.localizer)
-                assessor.load_state_dict(checkpoint.load_params(snaps[-1][1]))
-                self.assessor = assessor.to(self.device).eval()
-        self.map_eval = MAPEvaluator(self.image_size, iou_thresh=iou_threshold)
+        if self.is_ssd:
+            s = self.localizer.input_size
+            self.image_size = Size(s, s)
+            self.map_eval = SSDEvaluator(s, self.localizer.coder())
+            if snapshot_prefix == "Localizer_":
+                snapshot_prefix = self.manifest.get("snapshot_names", [loc_cfg["model"]])[0] + "_"
+        else:
+            self.image_size = self.localizer.input_size
+            if use_assessor and "assessor" in self.manifest:
+                names = self.manifest.get("snapshot_names", [])
+                prefix = names[-1] if len(names) > 1 else "ResnetAssessor"
+                snaps = checkpoint.list_snapshots(log_dir, prefix + "_")
+                if snaps:
+                    assessor = build_assessor(self.manifest["assessor"], self.localizer)
+                    assessor.load_state_dict(checkpoint.load_params(snaps[-1][1]))
+                    self.assessor = assessor.to(self.device).eval()
+            self.map_eval = MAPEvaluator(self.image_size, iou_thresh=iou_threshold)
         self._eval_step = make_eval_step()
         self.state = create_train_state(self.localizer)
         self.snapshot_prefix = snapshot_prefix
@@ -131,12 +144,12 @@ class Evaluator:
         ``bn_warmup`` batches of a fresh ``batches_factory()`` (train-mode
         forwards of the backbone) and keep them for this snapshot's
         scoring, renders and deteval: short runs snapshot statistics that
-        lag their weights."""
+        lag their weights. An SSD has no BatchNorm: no warm-up."""
         model = self.localizer
         # read on the host: a training snapshot also holds the optimizer's
         # state, which would otherwise cross to the card and be dropped
         model.load_state_dict(checkpoint.load_params(path))
-        if bn_warmup <= 0:
+        if bn_warmup <= 0 or self.is_ssd:
             return
         model.train()
         try:
@@ -166,7 +179,11 @@ class Evaluator:
         3) float in [0, 1], gt boxes (N, R, 4), ...) numpy batches. With
         ``save_predictions``, renders go to ``<dir>/<iteration>/<i>.png``;
         with ``deteval_dir``, ``deteval_<iteration>.xml`` is written there.
+        An SSD log dir writes no deteval XML and refuses
+        ``save_predictions`` (``SSD_RENDERS_REFUSED``).
         """
+        if save_predictions and self.is_ssd:
+            raise NotImplementedError(SSD_RENDERS_REFUSED)
         done = self.results.evaluated_snapshots()
         for iteration, path in checkpoint.list_snapshots(self.log_dir, self.snapshot_prefix):
             name = os.path.basename(path)
@@ -183,14 +200,18 @@ class Evaluator:
                         yield batch
 
                 score_start = time.perf_counter()
-                metrics = self.map_eval(self.state, counted(self._on_device(batches_factory())), self.assessor)
+                batches = counted(self._on_device(batches_factory()))
+                if self.is_ssd:
+                    metrics = self.map_eval(self.state, batches)
+                else:
+                    metrics = self.map_eval(self.state, batches, self.assessor)
                 score_s = time.perf_counter() - score_start
                 entry = {"snapshot_name": name, "iteration": iteration,
                          **{k: float(v) for k, v in metrics.items()}}
                 self.results.append(entry)
                 if save_predictions:
                     self._render_predictions(batches_factory(), iteration, save_predictions)
-                if deteval_dir:
+                if deteval_dir and not self.is_ssd:
                     self._write_deteval(batches_factory(), iteration, deteval_dir)
                 seconds = time.perf_counter() - start
                 self.results.timings[name] = {"seconds": seconds, "score_seconds": score_s, "images": images[0]}

@@ -55,6 +55,9 @@ class LocalizerInference:
         self.device = torch.device(device)
         self.manifest = checkpoint.load_manifest(log_dir)
         loc_cfg = self.manifest["localizer"]
+        if loc_cfg["model"].upper().startswith("SSD"):
+            raise KeyError(f"{log_dir} holds an {loc_cfg['model']} model, not a Localizer: serve it with "
+                           "SSDInference (inference.load_inference picks the wrapper)")
         self.localizer = build_model(loc_cfg["model"], **loc_cfg["kwargs"])
         self.input_size = self.localizer.input_size
         self.score_threshold = score_threshold

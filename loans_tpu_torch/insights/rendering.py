@@ -18,8 +18,10 @@ pixels itself, as ``data/image_ops.py`` computes Pillow's resizes:
   ``zlib`` and ``struct``.
 
 Images are HWC uint8 numpy arrays. The JAX package's ``scores`` argument,
-text drawn with Pillow's bitmap font, is used only by its SSD renders
-(ROADMAP.md Queue 1 item 12) and is not ported.
+text drawn with Pillow's bitmap font, is used only by its SSD renders and
+is not ported: the port has no such font, so the offline sweep refuses
+renders of an SSD log dir (``evaluation.evaluator.SSD_RENDERS_REFUSED``,
+lifted with ROADMAP.md Queue 1 item 13).
 """
 
 from __future__ import annotations

@@ -1,4 +1,4 @@
-"""Networks of the serving path (counterpart of ``loans_tpu.models``)."""
+"""Networks of the port (counterpart of ``loans_tpu.models``)."""
 
 from loans_tpu_torch.models.assessor import (
     DownResBlock1,
@@ -17,6 +17,7 @@ from loans_tpu_torch.models.resnet import (
     ConvBN,
     ResNet,
 )
+from loans_tpu_torch.models.ssd import SSD, SSD300, SSD512
 
 __all__ = [
     "BasicA",
@@ -32,4 +33,7 @@ __all__ = [
     "Localizer",
     "ResNet",
     "ResnetAssessor",
+    "SSD",
+    "SSD300",
+    "SSD512",
 ]

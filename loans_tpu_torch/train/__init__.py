@@ -1,5 +1,5 @@
-"""Training: train state and optimizer, the alternating and pooled steps,
-the loop, checkpoints and the metrics log (counterpart of
+"""Training: train state and optimizers, the alternating, supervised, SSD
+and pooled steps, the loop, checkpoints and the metrics log (counterpart of
 ``loans_tpu.train``)."""
 
 from loans_tpu_torch.train.checkpoint import (
@@ -20,6 +20,12 @@ from loans_tpu_torch.train.loop import (
     Trainer,
     multiplicative_lr_decay,
     two_state_lr_shifter,
+)
+from loans_tpu_torch.train.ssd_steps import (
+    SSDAdam,
+    create_ssd_train_state,
+    make_ssd_predict_step,
+    ssd_train_step,
 )
 from loans_tpu_torch.train.state import (
     AdamAmsgrad,
@@ -42,15 +48,18 @@ __all__ = [
     "CommandChannel",
     "Hook",
     "MetricsLog",
+    "SSDAdam",
     "TrainState",
     "Trainer",
     "alternating_step",
     "apply_commands",
+    "create_ssd_train_state",
     "create_train_state",
     "list_snapshots",
     "load_manifest",
     "load_params",
     "make_eval_step",
+    "make_ssd_predict_step",
     "mse",
     "multiplicative_lr_decay",
     "pooled_step",
@@ -60,6 +69,7 @@ __all__ = [
     "save_params",
     "save_state",
     "snapshot_name",
+    "ssd_train_step",
     "supervised_step",
     "to_float01",
     "two_state_lr_shifter",

@@ -15,8 +15,9 @@ One step, as ``alternating_step_body`` in the JAX package:
 
 The JAX step is one jitted XLA program; here it runs eagerly, updating
 both models and their optimizers in place. ``supervised_step`` trains the
-localizer alone on gt boxes, and ``pooled_step`` runs K steps of either on
-batches gathered on the device from resident pools.
+localizer alone on gt boxes, and ``pooled_step`` runs K steps of either, or
+of the SSD body (``data.ssd_device``), on batches gathered on the device from
+resident pools.
 """
 
 from __future__ import annotations
@@ -211,9 +212,10 @@ def pooled_step(
     config: AlternatingConfig = AlternatingConfig(),
     body: Callable = alternating_step,
 ) -> tuple[TrainState, TrainState | None, dict[str, torch.Tensor]]:
-    """``steps_per_call`` steps of ``body`` (``alternating_step`` or
-    ``supervised_step``) on batches gathered on the device from resident
-    pools (port of ``make_pooled_train_step``, ``steps.py:190-247``).
+    """``steps_per_call`` steps of ``body`` (``alternating_step``,
+    ``supervised_step`` or the SSD body ``data.ssd_device.SSDPooledBody``)
+    on batches gathered on the device from resident pools (port of
+    ``make_pooled_train_step``, ``steps.py:190-247``).
 
     ``chunk = {'pools': {group: {key: (N, ...) tensor}}, 'idx': {group:
     (K, B) index tensor}}`` with K = ``steps_per_call``, all on the

@@ -7,12 +7,14 @@ from typing import Any, Callable
 
 from torch import nn
 
-from loans_tpu_torch.models import Localizer, ResnetAssessor
+from loans_tpu_torch.models import SSD300, SSD512, Localizer, ResnetAssessor
 from loans_tpu_torch.ops.geometry import Size
 
 _REGISTRY: dict[str, Callable[..., nn.Module]] = {
     "Localizer": Localizer,
     "ResnetAssessor": ResnetAssessor,
+    "SSD300": SSD300,
+    "SSD512": SSD512,
 }
 
 

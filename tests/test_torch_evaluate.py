@@ -19,9 +19,9 @@ flags, and:
   within 1e-5 px of a rounding boundary may print one step apart);
 * resume and ``--force-reset`` evaluate the same snapshots as JAX's;
 * a corrupt snapshot is reported and the sweep goes on; an assessor
-  without snapshots scores nothing; an SSD log dir, image files and a
-  missing card are refused; without matplotlib, ``plot`` still reports the
-  best snapshot;
+  without snapshots scores nothing; renders of an SSD log dir, image files
+  and a missing card are refused; without matplotlib, ``plot`` still
+  reports the best snapshot;
 * the parser has JAX's flags and defaults, plus ``--device``.
 """
 
@@ -175,8 +175,8 @@ def test_assessor_without_snapshots_scores_nothing(log_dir, tmp_path):
 def test_refusals(log_dir, tmp_path, monkeypatch):
     ssd = tmp_path / "ssd"
     checkpoint.save_manifest(str(ssd), {"localizer": {"model": "SSD300", "kwargs": {}}})
-    with pytest.raises(NotImplementedError, match="item 12"):
-        Evaluator(str(ssd), device="cpu")
+    with pytest.raises(SystemExit, match="SSD log dir.*item 13"):  # renders without the score text's font
+        evaluate.main(["synthetic:2", str(ssd), "--save-predictions", str(tmp_path / "renders"), "--device", "cpu"])
     with pytest.raises(SystemExit, match="step 9b"):
         evaluate.main(["gt.json", log_dir, "--device", "cpu"])
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)

@@ -143,8 +143,8 @@ def test_without_assessor_scores_are_one(log_dir):
 
 
 def test_unported_options_and_missing_snapshots_raise(log_dir, tmp_path):
-    """An SSD log dir (ROADMAP.md Queue 1 item 12) names the models the
-    port has; a log dir without localizer snapshots raises."""
+    """An SSD log dir is refused, naming the wrapper that serves it
+    (``SSDInference``); a log dir without localizer snapshots raises."""
     ssd = tmp_path / "ssd"
     checkpoint.save_manifest(str(ssd), {"localizer": {"model": "SSD300", "kwargs": {}}})
     with pytest.raises(KeyError, match="SSD300.*Localizer"):

@@ -9,7 +9,10 @@ a tiny synthetic world, serves a tiny log dir on the CPU, with and without
 VisualBackprop, sweeps it with the evaluation CLI (renders, deteval XML and
 the report without matplotlib), and runs one tiny alternating training
 step, then one with rotation dropout at ratio 1.0 on the plain rotated crop
-(``sampler="rotated"``).
+(``sampler="rotated"``); then one SSD300 iteration of the SSD training CLI
+on the CPU (the device augmentation on the plain crop, the encoder, the
+multibox loss and the optimizer, and mAP through NMS), its log dir served
+through ``load_inference`` and swept by the evaluation CLI.
 It also checks that importing the package never runs ``nvcc`` and that
 the CUDA kernels of both crops refuse CPU tensors. The sources of the port
 and of ``chip_smoke.py``, which runs on the card, name none of them in an
@@ -130,9 +133,27 @@ assert sample_rotated_kernel.launches == 0 and sample_rotated_kernel.launches_bw
 assert not spawned, spawned
 assert not [m for m, v in sys.modules.items()
             if v is not None and m.split(".")[0] in ("jax", "flax", "loans_tpu", "PIL", "cv2", "matplotlib")]
+from loans_tpu_torch.cli import train_ssd
+from loans_tpu_torch.inference import SSDInference, load_inference
+ssd_root = tempfile.mkdtemp()
+ssd_dir = train_ssd.main(["synthetic:2", "synthetic:2", "-b", "1", "--steps-per-call", "1", "--iterations", "1",
+                          "--log-interval", "1", "--eval-interval", "1", "--eval-batches", "1", "--device", "cpu",
+                          "--log-dir", ssd_root])
+assert sorted(os.listdir(ssd_dir)) == ["SSD300_1.pt", "log", "manifest.json"]
+ssd = load_inference(ssd_dir, device="cpu", score_threshold=0.6)
+assert isinstance(ssd, SSDInference)
+ssd_boxes, _, ssd_scores, _ = ssd.localize(np.random.default_rng(0).uniform(size=(300, 300, 3)).astype(np.float32))
+assert ssd_boxes.shape[1:] == (4,) and len(ssd_scores) == len(ssd_boxes)
+with contextlib.redirect_stdout(io.StringIO()):
+    swept = evaluate.main(["synthetic:2", ssd_dir, "-b", "1", "--device", "cpu"])
+assert [e["snapshot_name"] for e in swept.entries] == ["SSD300_1.pt"]
+assert sample_separable_kernel.launches == 0 and not spawned, spawned
+assert not [m for m, v in sys.modules.items()
+            if v is not None and m.split(".")[0] in ("jax", "flax", "loans_tpu", "PIL", "cv2", "matplotlib")]
 import shutil
 shutil.rmtree(out_dir)
 shutil.rmtree(log_dir)
+shutil.rmtree(ssd_root)
 print("NO_JAX_OK")
 """
 
@@ -169,10 +190,10 @@ def test_port_sources_import_no_jax():
 
 
 def test_training_cli_path_imports_no_cv2():
-    """The training CLI's path (its data, evaluation, training and model
+    """The training CLIs' path (their data, evaluation, training and model
     modules, and ``chip_smoke.py``) names no cv2 either; only the image
     CLI and the serving helpers that draw or resize frames use it."""
-    paths = [PACKAGE / "cli" / "train_localizer.py", ROOT / "chip_smoke.py"]
+    paths = [PACKAGE / "cli" / "train_localizer.py", PACKAGE / "cli" / "train_ssd.py", ROOT / "chip_smoke.py"]
     for sub in ("data", "evaluation", "train", "models", "ops"):
         paths += list((PACKAGE / sub).rglob("*.py"))
     assert not _imports(paths, ("cv2",))
