@@ -100,12 +100,25 @@ Phases, one line or more each; any failure exits non-zero:
    batches of 32 (images/s), its detections held to the CPU's; then
    ``cli.evaluate.main`` sweeps both snapshots (mAP, seconds and images/s
    per snapshot), and a second run evaluates nothing; K1 launches 0.
-   Each of phases 15-18 prints its seconds.
+   Each of phases 15-18 prints its seconds;
+19. image files: phase 10's world written as PNGs by the port's writer (an
+   image list of 256 scenes, a labeled csv of 512 IoU-labeled crops, 64
+   labeled val scenes as a csv and a gt json) and read back by
+   ``data/png.py``; its decode rate per row filter, the host resizes'
+   rates and ``generate_dataset``; the training CLI on the files for 32
+   iterations with the host loader (``--device-data off``, 8 threads,
+   ``device_prefetch``) and with device pools (``on``), in turns, K1's
+   launches checked (a forward and a d theta a step, a forward an eval
+   batch); the loader alone; a traced stretch of steps on the loader (idle
+   share); the off run's log dir served and swept against the labeled csv;
+   the SSD CLI on the gt json with the host loader and ``--no-augment``
+   (K1 launches 0), and the augmenting transform's refusal without cv2.
 
 The line before the last is a JSON object of the six kernels: launches in
 phase 10, the CLI (K1), and phase 8 (K2), with the launches of every path
 driven (``launches_by_path``; phases 16 and 18 as ``train_ssd``,
-``serve_ssd`` and ``evaluate_ssd``), errors from phases 2, 2b, 7 and 15,
+``serve_ssd`` and ``evaluate_ssd``, phase 19 as ``train_cli_files``,
+``evaluate_files`` and ``train_ssd_files``), errors from phases 2, 2b, 7 and 15,
 K1's forward's times at phase 15's shapes (``ssd_shapes``), times and
 bounds at the training batch: ``ms`` per call (CUDA events, host launch
 included), ``device_ms`` (profiler, calls back to back), ``device_cold_ms``
@@ -124,12 +137,10 @@ import importlib.util
 import json
 import os
 import statistics
-import struct
 import subprocess
 import tempfile
 import time
 import xml.etree.ElementTree as ET
-import zlib
 
 import numpy as np
 import torch
@@ -140,11 +151,16 @@ from loans_tpu_torch import bench
 from loans_tpu_torch.cli import evaluate, train_localizer, train_ssd
 from loans_tpu_torch.cli.bench_samplers import FLUSH_BYTES, device_events, device_time, fmt_us
 from loans_tpu_torch.data import ssd_device, synthetic
+from loans_tpu_torch.data.cv_resize import resize_linear
+from loans_tpu_torch.data.datasets import LabeledImageDataset, resize_image
 from loans_tpu_torch.data.device_data import device_chunk_batches
-from loans_tpu_torch.data.loader import DataLoader, padded_collate
+from loans_tpu_torch.data.loader import DataLoader, device_prefetch, padded_collate
+from loans_tpu_torch.data.png import read_png
+from loans_tpu_torch.data.ssd_augment import SSDTransform
 from loans_tpu_torch.evaluation.evaluator import Evaluator
 from loans_tpu_torch.inference import SSDInference, load_inference
 from loans_tpu_torch.inference.localizer import LocalizerInference, set_precision
+from loans_tpu_torch.insights.rendering import write_png
 from loans_tpu_torch.models import SSD300
 from loans_tpu_torch.ops import _cuda, stn
 from loans_tpu_torch.ops.geometry import Size, box_to_theta, corners_to_aabb, theta_corners
@@ -1220,7 +1236,8 @@ def cli_run(tag: str, argv: list[str], card: str, log_root: str | None = None) -
         losses = ["loss_localizer"] + ([] if args.supervised else ["loss_dis"])
         for e in log:
             check(all(np.isfinite(e[k]) for k in losses + ["mean_iou", "map"]), f"{tag}: finite: {e}")
-        n_val = train_localizer._synthetic_n(args.val_file, 64)
+        n_val = (train_localizer._synthetic_n(args.val_file, 64) if train_localizer._is_synthetic(args.val_file)
+                 else len(LabeledImageDataset(args.val_file)))
         n_val_batches = min(args.eval_batches, n_val // max(args.batch_size // 2, 1))
         evals = len(log) * n_val_batches
         steps = 0 if args.supervised else iterations  # supervised steps do not crop
@@ -1385,30 +1402,6 @@ def bf16_step(card: str, f32_step_rate: float) -> None:
 
 
 # -- phase 12 ---------------------------------------------------------------
-def read_png(path: str) -> np.ndarray:
-    """An 8-bit RGB PNG of ``insights.rendering.write_png`` (no filter, no
-    interlace) as an HW3 uint8 array: the card's machine has no Pillow."""
-    with open(path, "rb") as f:
-        data = f.read()
-    check(data[:8] == b"\x89PNG\r\n\x1a\n", f"{path}: not a PNG")
-    pos, idat, header = 8, b"", None
-    while pos < len(data):
-        (length,) = struct.unpack(">I", data[pos : pos + 4])
-        kind, body = data[pos + 4 : pos + 8], data[pos + 8 : pos + 8 + length]
-        check(zlib.crc32(kind + body) == struct.unpack(">I", data[pos + 8 + length : pos + 12 + length])[0],
-              f"{path}: bad CRC in {kind!r}")
-        if kind == b"IHDR":
-            header = struct.unpack(">IIBBBBB", body)
-        elif kind == b"IDAT":
-            idat += body
-        pos += 12 + length
-    w, h, depth, color = header[:4]
-    check(depth == 8 and color == 2, f"{path}: depth {depth}, color type {color}")
-    rows = np.frombuffer(zlib.decompress(idat), np.uint8).reshape(h, 1 + w * 3)
-    check(not rows[:, 0].any(), f"{path}: a row is filtered")
-    return rows[:, 1:].reshape(h, w, 3)
-
-
 def eval_argv(log_dir: str, out: str) -> list[str]:
     """The evaluation CLI on phase 10's world (the train CLI's val seed and
     asset seed: ``evaluate``'s defaults for a run at seed 0), batch 32."""
@@ -1649,10 +1642,11 @@ def ssd_crop_against_plain(card: str) -> dict:
 
 
 # -- phase 16 ---------------------------------------------------------------
-def ssd_cli_run(tag: str, argv: list[str], card: str, log_root: str) -> dict:
+def ssd_cli_run(tag: str, argv: list[str], card: str, log_root: str, k1_per_iteration: int = 1) -> dict:
     """``train_ssd.main(argv)`` in this process with every count at 0:
-    K1's forward once per iteration and nothing else, finite losses, mAP
-    at every eval interval, the snapshots; images/s per log entry."""
+    K1's forward ``k1_per_iteration`` times per iteration (the device
+    augment's window) and nothing else, finite losses, mAP at every eval
+    interval, the snapshots; images/s per log entry."""
     args = train_ssd.get_parser().parse_args(argv)
     torch.cuda.synchronize()
     reset_launches()
@@ -1661,7 +1655,7 @@ def ssd_cli_run(tag: str, argv: list[str], card: str, log_root: str) -> dict:
     torch.cuda.synchronize()
     wall_s = time.perf_counter() - start
     launches = read_launches()
-    check(launches == {"K1": {**NO_LAUNCHES, "fwd": args.iterations}, "K2": NO_LAUNCHES},
+    check(launches == {"K1": {**NO_LAUNCHES, "fwd": k1_per_iteration * args.iterations}, "K2": NO_LAUNCHES},
           f"{tag}: launches {launches} for {args.iterations} iterations")
     log = MetricsLog.read(log_dir)
     check(len(log) == args.iterations // args.log_interval, f"{tag}: {len(log)} log entries")
@@ -1679,7 +1673,7 @@ def ssd_cli_run(tag: str, argv: list[str], card: str, log_root: str) -> dict:
     check({f"{name}_{i}.pt" for i in written} | {"manifest.json", "log"} <= set(snaps), f"{tag}: {snaps}")
     print(f"{tag}: {args.iterations} iterations of {name} at batch {args.batch_size}{' bf16' if args.bf16 else ''} "
           f"in {wall_s:.2f} s of wall time (data generation and evals included); K1 launches {launches['K1']} "
-          f"(one forward per iteration, no backward), K2 {launches['K2']}; log dir {snaps}")
+          f"({k1_per_iteration} forward per iteration, no backward), K2 {launches['K2']}; log dir {snaps}")
     rates = [e["images_per_sec"] for e in log[1:] or log]
     return {"log_dir": log_dir, "launches": launches["K1"]["fwd"], "images_per_s": statistics.median(rates)}
 
@@ -1689,7 +1683,7 @@ def ssd_trace(card: str) -> None:
     batch 32, after a warm-up call): the largest device items, the idle
     share and K1's forward's share of the device time."""
     args = train_ssd.get_parser().parse_args(["synthetic:64"] + SSD_ARGV[1:])
-    pool, _ = train_ssd.build_pools(args, 300)
+    pool = train_ssd.build_pool(args, 300)
     torch.manual_seed(SEED)
     model = SSD300().to(DEVICE)
     state = create_ssd_train_state(model, SSD_LR)
@@ -1909,6 +1903,260 @@ def ssd_phases(card: str, work: str) -> dict:
     return {"crops": crops, "train": cli["launches"], **served}
 
 
+# -- phase 19 ---------------------------------------------------------------
+# image files: phase 10's world written as PNGs with the port's own writer
+# (256 train scenes as an image list, 512 IoU-labeled crops as a labeled csv,
+# 64 labeled val scenes as a labeled csv and a gt json, and a gt json of the
+# train scenes for the SSD), read back with data/png.py; then the training
+# CLI on them for 32 iterations with the host loader (--device-data off, 8
+# threads) and with the files materialized into device pools (on), in turns;
+# the off run's log dir served and swept against the labeled csv; and the
+# SSD CLI on the gt json with the host loader and --no-augment
+FILES_ITERATIONS, FILES_LOG_INTERVAL, FILES_WORKERS = 32, 8, 8
+FILES_ARGS = [
+    "--batch-size", str(TRAIN_BATCH), "--n-layers", "50", "--target-size", str(INPUT), str(INPUT),
+    "--crop-size", str(CROP), str(CROP), "--iterations", str(FILES_ITERATIONS),
+    "--log-interval", str(FILES_LOG_INTERVAL), "--snapshot-interval", str(FILES_ITERATIONS),
+    "--eval-batches", str(CLI_EVAL_BATCHES), "--synthetic-assets", "16",
+    "--num-workers", str(FILES_WORKERS), "--device", DEVICE,
+]
+SSD_FILES_ITERATIONS = 16
+SSD_FILES_ARGS = [
+    "--model", "ssd300", "--batch-size", str(SSD_BATCH), "--iterations", str(SSD_FILES_ITERATIONS),
+    "--log-interval", "8", "--eval-interval", str(SSD_FILES_ITERATIONS), "--eval-batches", "2",
+    "--snapshot-interval", str(SSD_FILES_ITERATIONS), "--device-data", "off",
+    "--num-workers", str(FILES_WORKERS), "--device", DEVICE,
+]
+# the row filters of the decode-rate files: the port's writer uses None; a
+# Pillow-written PNG mixes Sub, Up, Average and Paeth rows
+DECODE_FILTERS = {"None": 0, "Sub": 1, "Up": 2, "Average": 3, "Paeth": 4, "mixed 0-4": None}
+DECODE_FILES = 32
+
+
+def _rate(n: int, seconds: float) -> str:
+    return f"{n / seconds:.1f} images/s ({seconds * 1e3 / n:.2f} ms an image)"
+
+
+def write_image_files(root: str) -> dict:
+    """Phase 10's datasets (the CLI's own dataset functions: the same seeds
+    and asset world, the crops rendered by K1) written as PNGs, and read
+    back."""
+    args = train_localizer.get_parser().parse_args(CLI_ARGV)
+    train, reference, val = train_localizer.build_datasets(args)
+    os.makedirs(f"{root}/scenes")
+    os.makedirs(f"{root}/crops")
+    start = time.perf_counter()
+    train_lines, train_gt = [], []
+    for i, (img, box) in enumerate(train.items):
+        write_png(f"{root}/scenes/t{i}.png", img)
+        train_lines.append(f"scenes/t{i}.png")
+        train_gt.append({"image": f"scenes/t{i}.png", "bounding_boxes": [box.tolist()]})
+    crop_rows = []
+    for i, (crop, iou) in enumerate(reference.items):
+        write_png(f"{root}/crops/{i}.png", crop)
+        crop_rows.append(f"crops/{i}.png\t{format(iou, '.4f')}")
+    val_rows, val_gt = [], []
+    for i, (img, box) in enumerate(val.items):
+        write_png(f"{root}/scenes/v{i}.png", img)
+        val_rows.append("\t".join([f"scenes/v{i}.png"] + [repr(float(v)) for v in box]))
+        val_gt.append({"image": f"scenes/v{i}.png", "bounding_boxes": [box.tolist()]})
+    files = {"train": f"{root}/train.txt", "crops": f"{root}/crops.csv", "val_csv": f"{root}/val.csv",
+             "val_json": f"{root}/val.json", "train_json": f"{root}/train.json"}
+    for key, lines in (("train", train_lines), ("crops", crop_rows), ("val_csv", val_rows)):
+        with open(files[key], "w") as f:
+            f.write("\n".join(lines) + "\n")
+    for key, records in (("val_json", val_gt), ("train_json", train_gt)):
+        with open(files[key], "w") as f:
+            json.dump(records, f)
+    write_s = time.perf_counter() - start
+    n = len(train.items) + len(reference.items) + len(val.items)
+    print(f"files: {len(train.items)} train scenes {INPUT}^2, {len(reference.items)} IoU-labeled crops {CROP}^2, "
+          f"{len(val.items)} labeled val scenes (csv and gt json) written as PNG (no filter) in {write_s:.2f} s")
+    for i in range(0, len(train.items), 16):
+        check(np.array_equal(read_png(f"{root}/scenes/t{i}.png"), train.items[i][0]), f"files: scene {i} read back")
+    for i in range(0, len(reference.items), 32):
+        check(np.array_equal(read_png(f"{root}/crops/{i}.png"), reference.items[i][0]), f"files: crop {i} read back")
+    start = time.perf_counter()
+    for i in range(len(train.items)):
+        read_png(f"{root}/scenes/t{i}.png")
+    print(f"files: {n // 16 + len(reference.items) // 32} sampled files read back by data/png.py equal to the arrays "
+          f"written; decode of the {len(train.items)} {INPUT}^2 train scenes on one thread: "
+          f"{_rate(len(train.items), time.perf_counter() - start)}")
+    decode_rates(root, [img for img, _ in train.items[:DECODE_FILES]])
+    host_resize_rates([img for img, _ in train.items[:DECODE_FILES]])
+    start = time.perf_counter()
+    gen_csv = synthetic.generate_dataset(f"{root}/generated", 8, image_size=(INPUT, INPUT), output_size=(CROP, CROP))
+    gen = LabeledImageDataset(gen_csv)
+    examples = [gen[i] for i in range(len(gen))]
+    check(all(e[0].shape == (CROP, CROP, 3) and 0.0 <= float(e[1][0]) <= 1.0 for e in examples),
+          "files: generate_dataset's crops read back")
+    print(f"files: generate_dataset wrote and LabeledImageDataset read back {len(gen)} IoU-labeled crops in "
+          f"{time.perf_counter() - start:.2f} s (labels {[round(float(e[1][0]), 4) for e in examples]})")
+    return files
+
+
+def decode_rates(root: str, images: list[np.ndarray]) -> None:
+    """data/png.py's decode rate on one thread for files whose rows all
+    take one filter (or a mix), each read back equal to its image."""
+    rates = []
+    for name, f in DECODE_FILTERS.items():
+        paths = []
+        for i, img in enumerate(images):
+            filters = f if f is not None else np.arange(img.shape[0]) % 5
+            paths.append(write_png(f"{root}/decode_{f}_{i}.png", img, filters=filters))
+        start = time.perf_counter()
+        decoded = [read_png(p) for p in paths]
+        seconds = time.perf_counter() - start
+        check(all(np.array_equal(d, img) for d, img in zip(decoded, images)), f"files: {name} rows read back")
+        rates.append(f"{name} {_rate(len(images), seconds)}")
+    print(f"files: decode of {len(images)} {INPUT}^2 RGB PNGs, rows filtered by: " + "; ".join(rates))
+
+
+def host_resize_rates(images: list[np.ndarray]) -> None:
+    """The host resizes of the datasets on one thread: Pillow's LANCZOS in
+    numpy (``datasets.resize_image``, a 300^2 file to 224^2) and OpenCV's
+    linear (``cv_resize``, a 224^2 file to the SSD's 300^2)."""
+    big = [resize_linear(img, (300, 300)) for img in images]
+    start = time.perf_counter()
+    for img in big:
+        resize_image(img, (INPUT, INPUT))
+    lanczos = time.perf_counter() - start
+    start = time.perf_counter()
+    for img in images:
+        resize_linear(img, (300, 300))
+    linear = time.perf_counter() - start
+    print(f"files: host resize on one thread: LANCZOS 300^2->{INPUT}^2 {_rate(len(big), lanczos)}; "
+          f"OpenCV linear {INPUT}^2->300^2 {_rate(len(images), linear)}")
+
+
+def host_loader_rate(argv: list[str]) -> float:
+    """The host loader alone (``--num-workers`` threads): the CLI's zipped
+    train and reference streams for 32 batches, no step."""
+    args = train_localizer.get_parser().parse_args(argv)
+    train, reference, _ = train_localizer.build_datasets(args)
+    batches = train_localizer._host_batches(args, train, reference)
+    next(batches)  # the pool's first lookahead
+    start = time.perf_counter()
+    for _ in range(FILES_ITERATIONS):
+        next(batches)
+    seconds = time.perf_counter() - start
+    batches.close()
+    rate = FILES_ITERATIONS * args.batch_size / seconds
+    print(f"files: the host loader alone ({args.num_workers} threads): {FILES_ITERATIONS} batches of "
+          f"{args.batch_size} scenes + {args.batch_size} crops in {seconds:.2f} s = {rate:.1f} batches' "
+          f"images/s (scenes counted)")
+    return rate
+
+
+def files_trace(argv: list[str], card: str) -> None:
+    """One traced stretch of 4 alternating steps fed by the host loader and
+    ``device_prefetch`` (after 3 warm-up steps): the idle share."""
+    args = train_localizer.get_parser().parse_args(argv)
+    train, reference, _ = train_localizer.build_datasets(args)
+    loc_state, ass_state = train_localizer.build_states(args, torch.device(DEVICE))
+    batches = device_prefetch(train_localizer._host_batches(args, train, reference), DEVICE)
+    config = AlternatingConfig(image_size=Size(INPUT, INPUT))
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+    for _ in range(3):
+        float(alternating_step(loc_state, ass_state, next(batches), gen, config)[2]["loss_localizer"])
+    steps = 4
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        start = time.perf_counter()
+        for _ in range(steps):
+            metrics = alternating_step(loc_state, ass_state, next(batches), gen, config)[2]
+        float(metrics["loss_localizer"])
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - start) * 1e3
+    batches.close()
+    print_trace(prof, f"{steps} alternating steps at batch {TRAIN_BATCH} on the host loader "
+                      f"({args.num_workers} threads, device_prefetch)", wall_ms, card, top=6)
+    h2d = [e for e in device_events(prof) if "Memcpy HtoD" in e.key]
+    print(f"trace: {sum(e.count for e in h2d)} H2D copies, {sum(e.self_device_time_total for e in h2d) / 1e3:.3f} ms "
+          f"of device time; {steps * TRAIN_BATCH / wall_ms * 1e3:.1f} images/s in the traced stretch ({card})")
+
+
+def files_evaluate(log_dir: str, val_csv: str, card: str) -> int:
+    """``cli.evaluate.main`` on the labeled csv against the file run's log
+    dir: K1's forward once per batch; a second run evaluates nothing."""
+    argv = [val_csv, log_dir, "-b", str(BATCH), "-a", "--device", DEVICE]
+    snaps = checkpoint.list_snapshots(log_dir, "Localizer_")
+    n_batches = len(LabeledImageDataset(val_csv)) // BATCH
+    torch.cuda.synchronize()
+    reset_launches()
+    results = evaluate.main(argv)
+    torch.cuda.synchronize()
+    launches = read_launches()
+    want = len(snaps) * n_batches
+    check(launches == {"K1": {**NO_LAUNCHES, "fwd": want}, "K2": NO_LAUNCHES},
+          f"evaluate files: launches {launches} for {len(snaps)} snapshots x {n_batches} batches")
+    for e in results.entries:
+        t = results.timings[e["snapshot_name"]]
+        check(all(np.isfinite(e[k]) for k in ("map", "mean_iou")), f"evaluate files: {e}")
+        print(f"evaluate files: {e['snapshot_name']} against {os.path.basename(val_csv)}: map {e['map']:.4f} "
+              f"mean_iou {e['mean_iou']:.4f} mean_assessor_score {e['mean_assessor_score']:.4f}; "
+              f"{t['seconds']:.3f} s for the snapshot, scoring {t['images'] / t['score_seconds']:.1f} images/s "
+              f"(decode on the host included) ({card})")
+    reset_launches()
+    again = evaluate.main(argv)
+    check(not again.timings and read_launches() == {"K1": NO_LAUNCHES, "K2": NO_LAUNCHES},
+          f"evaluate files: the second run evaluated {again.timings}")
+    print(f"evaluate files: K1 forward launches {want} = {len(snaps)} snapshot x {n_batches} batches; "
+          f"a second run evaluated nothing")
+    return want
+
+
+def files_ssd(files: dict, card: str, log_root: str) -> int:
+    """The SSD CLI on the gt json with the host loader and ``--no-augment``
+    (K1 launches 0); with cv2 also 8 augmented iterations, without it the
+    augmenting transform's refusal by name."""
+    argv = [files["train_json"], files["val_json"], *SSD_FILES_ARGS, "--no-augment"]
+    run = ssd_cli_run("ssd files", argv, card, f"{log_root}/plain", k1_per_iteration=0)
+    print(f"ssd files: SSD300 float32 batch {SSD_BATCH} on the gt json (host resize 224^2->300^2, encoder on the "
+          f"host, device_prefetch): {run['images_per_s']:.1f} images/s, median log entry after the first ({card})")
+    if importlib.util.find_spec("cv2"):
+        short = [files["train_json"], files["val_json"], *SSD_FILES_ARGS, "--iterations", "8", "--log-interval", "8",
+                 "--eval-interval", "8", "--snapshot-interval", "8"]
+        aug = ssd_cli_run("ssd files augment", short, card, f"{log_root}/augment", k1_per_iteration=0)
+        print(f"ssd files augment: {aug['images_per_s']:.1f} images/s with the host augmentation (cv2) ({card})")
+    else:
+        coder = SSD300().coder()
+        try:
+            SSDTransform(coder, 300, augment=True)(np.zeros((8, 8, 3), np.uint8), np.array([[1, 1, 5, 5]]))
+        except RuntimeError as e:
+            check("cv2" in str(e) and "--no-augment" in str(e), f"ssd files: the refusal {e}")
+            print(f"ssd files: without cv2 the augmenting host transform refuses by name: {e}")
+        else:
+            check(False, "ssd files: the augmenting host transform ran without cv2")
+    return run["launches"]
+
+
+def files_phase(card: str, work: str) -> dict:
+    """Phase 19."""
+    files = write_image_files(f"{work}/files")
+    inputs = [files["train"], files["crops"], files["val_csv"]]
+    off = inputs + FILES_ARGS + ["--device-data", "off"]
+    on = inputs + FILES_ARGS + ["--device-data", "on", "--steps-per-call", str(STEPS_PER_CALL)]
+    loader = host_loader_rate(off)
+    runs = {"off": [], "on": []}
+    counted = cli_run("files off", off, card, f"{work}/files_off")
+    runs["off"].append(counted["images_per_s"])
+    for mode, argv in (("on", on), ("off", off), ("on", on)):
+        runs[mode].append(cli_run(f"files {mode}", argv, card)["images_per_s"])
+    check(counted["launches"] == {"fwd": FILES_ITERATIONS + (FILES_ITERATIONS // FILES_LOG_INTERVAL) * CLI_EVAL_BATCHES,
+                                  "bwd_theta": FILES_ITERATIONS, "bwd_images": 0},
+          f"files off: K1 launches {counted['launches']}")
+    print(f"files: R-50 {INPUT}->{CROP} float32 at batch {TRAIN_BATCH}, {FILES_ITERATIONS} iterations, images/s "
+          f"(median log entry after the first), in turns: host loader (--device-data off, {FILES_WORKERS} threads) "
+          f"{', '.join(f'{r:.1f}' for r in runs['off'])}; device pools (on) "
+          f"{', '.join(f'{r:.1f}' for r in runs['on'])}; the loader alone {loader:.1f} ({card})")
+    files_trace(off, card)
+    evaluated = files_evaluate(counted["log_dir"], files["val_csv"], card)
+    ssd = files_ssd(files, card, f"{work}/files_ssd")
+    return {"train": counted["launches"], "evaluate": evaluated, "train_ssd": ssd}
+
+
 def kernel_entry(name: str, source: str, replaces: str, launches: int, err: float, t: dict,
                  in_situ: dict, by_path: dict) -> dict:
     return {
@@ -1957,17 +2205,25 @@ def main() -> None:
         vbp_launches = vbp_phase(card, serve_dir, frames)
         bench_launches = bench_phase(card)
         ssd = ssd_phases(card, work)
+        start = time.perf_counter()
+        with_files = files_phase(card, work)
+        print(f"phase 19: {time.perf_counter() - start:.1f} s")
     k1_src, k2_src = "separable_sampler.cu", "rotated_sampler.cu"
     launches1, launches2 = cli["launches"], k2_train["launches"]
     in_situ = {**k1_train["device_in_situ_ms"], **k2_train["device_in_situ_ms"]}
-    ssd_paths = {"train_ssd": ssd["train"], "serve_ssd": ssd["serve"], "evaluate_ssd": ssd["evaluate"]}
+    ssd_paths = {"train_ssd": ssd["train"], "serve_ssd": ssd["serve"], "evaluate_ssd": ssd["evaluate"],
+                 "train_ssd_files": with_files["train_ssd"]}
     no_ssd = dict.fromkeys(ssd_paths, 0)
+    files_paths = {kind: {"train_cli_files": with_files["train"][kind],
+                          "evaluate_files": with_files["evaluate"] if kind == "fwd" else 0} for kind in COUNTERS}
     k1_paths = {
         "fwd": {"serve": serving["launches"], "train": k1_train["launches"]["fwd"], "train_cli": launches1["fwd"],
-                "evaluate": evaluated["K1"], "serve_vbp": vbp_launches, "bench": bench_launches["fwd"], **ssd_paths},
+                "evaluate": evaluated["K1"], "serve_vbp": vbp_launches, "bench": bench_launches["fwd"], **ssd_paths,
+                **files_paths["fwd"]},
         "bwd_theta": {"train": k1_train["launches"]["bwd_theta"], "train_cli": launches1["bwd_theta"],
-                      "evaluate": 0, "bench": bench_launches["bwd_theta"], **no_ssd},
-        "bwd_images": {"train": 0, "train_cli": launches1["bwd_images"], "evaluate": 0, "bench": 0, **no_ssd},
+                      "evaluate": 0, "bench": bench_launches["bwd_theta"], **no_ssd, **files_paths["bwd_theta"]},
+        "bwd_images": {"train": 0, "train_cli": launches1["bwd_images"], "evaluate": 0, "bench": 0, **no_ssd,
+                       **files_paths["bwd_images"]},
     }
     k1_fwd = kernel_entry("separable_sampler_fwd", k1_src, "loans_tpu/ops/stn.py:421", launches1["fwd"],
                           max([k1["max_abs_err"]] + [t["max_abs_err"] for t in ssd["crops"].values()]),

@@ -8,9 +8,10 @@ against a labeled dataset, resumably (scored snapshots are skipped;
 ``--force-reset`` starts again), then plots the metric curves and reports
 the best snapshot. The flags and defaults are the JAX CLI's, plus
 ``--device`` (default ``cuda``; ``--device cpu`` runs the plain PyTorch
-versions of the kernels). Only the synthetic ground truth
-(``synthetic[:N]``) is ported: image files, and renders of an SSD log dir,
-are refused with the item that lifts the refusal.
+versions of the kernels). The ground truth is ``synthetic[:N]`` or a
+labeled csv or json (``data.datasets.LabeledImageDataset``, resized to
+the model's input size). Renders of an SSD log dir are refused with the
+item that lifts the refusal.
 """
 
 from __future__ import annotations
@@ -57,10 +58,15 @@ def get_parser() -> argparse.ArgumentParser:
 
 
 def build_dataset(args, image_size):
-    """The labeled synthetic scenes of ``args.gt``, as the JAX CLI builds
-    them (the same seed and asset-seed conventions)."""
-    from loans_tpu_torch.cli.train_localizer import _synthetic_n
+    """The labeled scenes of ``args.gt``, as the JAX CLI builds them: a
+    labeled csv or json resized to ``image_size``, or synthetic scenes (the
+    same seed and asset-seed conventions)."""
+    from loans_tpu_torch.cli.train_localizer import _is_synthetic, _synthetic_n
+    from loans_tpu_torch.data.datasets import LabeledImageDataset
     from loans_tpu_torch.data.synthetic import SyntheticLocalizerDataset, load_base_bbox_sizes
+
+    if not _is_synthetic(args.gt):
+        return LabeledImageDataset(args.gt, image_size=tuple(image_size))
 
     asset_kw = {}
     if args.synthetic_assets:
@@ -78,13 +84,10 @@ def build_dataset(args, image_size):
 
 def main(argv=None):
     """Sweep; returns the ``EvalResults``."""
-    from loans_tpu_torch.cli.train_localizer import REFUSED, _is_synthetic
     from loans_tpu_torch.data.loader import DataLoader, padded_collate
     from loans_tpu_torch.evaluation.evaluator import SSD_RENDERS_REFUSED, Evaluator
 
     args = get_parser().parse_args(argv)
-    if not _is_synthetic(args.gt):
-        raise SystemExit(f"the port cannot run this: {args.gt!r}: {REFUSED['files']}")
     if torch.device(args.device).type == "cuda" and not torch.cuda.is_available():
         raise SystemExit("--device cuda but torch.cuda.is_available() is false; pass --device cpu")
     evaluator = Evaluator(

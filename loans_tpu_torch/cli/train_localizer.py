@@ -7,15 +7,21 @@ The same flags, log dir and metric keys as the JAX package's CLI, plus
 ``--device`` (default ``cuda``; ``--device cpu`` runs the plain PyTorch
 versions of the kernels). It builds the unlabeled train scenes, the
 labeled assessor ("reference") crops and the labeled validation scenes,
-keeps them in device memory, and trains the localizer and the assessor
-with two Adam(amsgrad) optimizers, K alternating steps per call
-(``train.steps.pooled_step``), evaluating mean IoU and VOC mAP at every
-log interval. ``<log_dir>/<timestamp>_<name>`` receives ``manifest.json``,
-the metrics ``log`` and ``<Name>_<iter>.pt`` snapshots, which
+each from ``synthetic[:N]`` or from files (an image list, a labeled csv,
+a labeled csv or json: ``data.datasets``), and trains the localizer and
+the assessor with two Adam(amsgrad) optimizers, evaluating mean IoU and
+VOC mAP at every log interval. With device data (``--device-data on``, or
+``auto`` when every split is synthetic) the datasets live in device
+memory and each call runs K steps on batches gathered there
+(``train.steps.pooled_step``); with ``--device-data off`` a thread-pooled
+host loader (``--num-workers`` threads) decodes and resizes the files,
+``data.loader.device_prefetch`` copies each batch to the device while the
+step before it runs, and each call runs one step.
+``<log_dir>/<timestamp>_<name>`` receives ``manifest.json``, the metrics
+``log`` and ``<Name>_<iter>.pt`` snapshots, which
 ``inference.LocalizerInference`` serves.
 
-Only the synthetic datasets (``synthetic[:N]``) are ported; files, the
-JAX-only tooling and the plotter are refused with the item that lifts
+The JAX-only tooling and the plotter are refused with the item that lifts
 the refusal (``REFUSED``).
 """
 
@@ -35,9 +41,6 @@ REFUSED = {
     "profile": "--profile takes a JAX profiler trace; not ported (ROADMAP.md Queue 1 item 13)",
     "plot_interval": "--plot-interval needs the BBoxPlotter (ROADMAP.md Queue 1 item 13)",
     "send_bboxes": "--send-bboxes needs the BBoxPlotter (ROADMAP.md Queue 1 item 13)",
-    "device_data_off": "--device-data off needs the host loader (ROADMAP.md Queue 1 step 9b)",
-    "files": "image files need the host datasets and a decoder (ROADMAP.md Queue 1 step 9b); "
-             "use synthetic[:N]",
 }
 
 
@@ -45,9 +48,9 @@ def get_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         description="train a localizer with an assessor (LoANs, PyTorch/CUDA)"
     )
-    p.add_argument("train_file", help="'synthetic[:N]' for generated scenes")
-    p.add_argument("reference_file", help="'synthetic[:N]' for generated IoU-labeled crops")
-    p.add_argument("val_file", help="'synthetic[:N]' for generated labeled scenes")
+    p.add_argument("train_file", help="image list, or 'synthetic[:N]' for generated scenes")
+    p.add_argument("reference_file", help="IoU-labeled csv, or 'synthetic[:N]' for generated crops")
+    p.add_argument("val_file", help="labeled csv/json, or 'synthetic[:N]' for generated labeled scenes")
     p.add_argument("--batch-size", "-b", type=int, default=16)
     p.add_argument("--target-size", type=int, nargs=2, default=[224, 224], help="input size (h w)")
     p.add_argument("--crop-size", type=int, nargs=2, default=[75, 75], help="assessor crop size (h w)")
@@ -106,12 +109,12 @@ def get_parser() -> argparse.ArgumentParser:
     p.add_argument("--eval-bn-warmup", type=int, default=0, metavar="N",
                    help="re-estimate BatchNorm stats from N val batches before each in-training eval")
     p.add_argument("--eval-batches", type=int, default=8, help="bounded in-training eval")
-    p.add_argument("--num-workers", type=int, default=None, help="host loader workers (unused: device data)")
+    p.add_argument("--num-workers", type=int, default=None, help="host loader threads (--device-data off)")
     p.add_argument("--device-data", choices=["auto", "on", "off"], default="auto",
                    help="keep the datasets in device memory and gather batches by index "
-                   "('off' is not ported)")
+                   "(auto: on when every split is synthetic; off: the host loader)")
     p.add_argument("--steps-per-call", type=int, default=0,
-                   help="train iterations per step call (0 = 8)")
+                   help="train iterations per step call with device data (0 = 8; 1 without)")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--lr-shift", type=float, nargs=4, default=None,
                    metavar=("START_LR", "TARGET_LR", "START_IT", "END_IT"),
@@ -146,13 +149,15 @@ def refusals(args) -> list[str]:
         out.append(REFUSED["plot_interval"])
     if args.send_bboxes:
         out.append(REFUSED["send_bboxes"])
-    if args.device_data == "off":
-        out.append(REFUSED["device_data_off"])
-    files = [args.train_file, args.val_file] + ([] if args.supervised else [args.reference_file])
-    for spec in files:
-        if not _is_synthetic(spec):
-            out.append(f"{spec!r}: {REFUSED['files']}")
     return out
+
+
+def uses_device_data(args) -> bool:
+    """The JAX CLI's rule: ``on``, or ``auto`` when every split this run
+    reads is ``synthetic[:N]``."""
+    synthetic = (_is_synthetic(args.train_file) and _is_synthetic(args.val_file)
+                 and (args.supervised or _is_synthetic(args.reference_file)))
+    return args.device_data == "on" or (args.device_data == "auto" and synthetic)
 
 
 def build_asset_kw(args):
@@ -180,8 +185,11 @@ def _timed(what: str, build):
 
 def build_datasets(args):
     """(train scenes, reference crops, labeled val scenes), as the JAX
-    CLI builds them from ``synthetic[:N]`` (the same seeds, cache keys and
-    worlds)."""
+    CLI builds them: ``synthetic[:N]`` with the same seeds, cache keys and
+    worlds (uint8), or files (float32 in [0, 1]: an image list resized to
+    ``--target-size``, an IoU-labeled csv resized to ``--crop-size``, a
+    labeled csv or json resized to ``--target-size``)."""
+    from loans_tpu_torch.data.datasets import ImageDataset, LabeledImageDataset, read_labeled_csv
     from loans_tpu_torch.data.synthetic import (
         SyntheticAssessorDataset,
         SyntheticLocalizerDataset,
@@ -193,47 +201,60 @@ def build_datasets(args):
     asset_kw = build_asset_kw(args)
     key_kw = {k: str(v) for k, v in asset_kw.items()}
     cache = args.synthetic_cache
-    n_train = _synthetic_n(args.train_file, 512)
-    train = _timed(f"{n_train} train scenes", lambda: cached_synthetic(
-        cache, "scenes",
-        lambda items: SyntheticLocalizerDataset(
-            n_train, image_size=img, seed=args.seed, output_dtype="uint8", items=items, **asset_kw,
-        ),
-        n=n_train, image_size=list(img), seed=args.seed, labeled=False, **key_kw,
-    ))
-    n_ref = _synthetic_n(args.reference_file, 1024)
-    pipeline = args.assessor_pipeline
-    reference = _timed(f"{n_ref} reference crops ({pipeline})", lambda: cached_synthetic(
-        cache, "crops",
-        lambda items: SyntheticAssessorDataset(
-            n_ref, output_size=crop, image_size=img, seed=args.seed + 1, output_dtype="uint8",
-            crop_pipeline=pipeline, low_iou_fraction=args.assessor_low_iou, items=items,
-            device=args.device, **asset_kw,
-        ),
-        n=n_ref, crop=list(crop), image_size=list(img), seed=args.seed + 1, pipeline=pipeline,
-        low_iou=args.assessor_low_iou, **key_kw,
-    ))
-    n_val = _synthetic_n(args.val_file, 64)
-    val = _timed(f"{n_val} val scenes", lambda: cached_synthetic(
-        cache, "scenes",
-        lambda items: SyntheticLocalizerDataset(
-            n_val, image_size=img, seed=args.seed + 2, labeled=True, output_dtype="uint8",
-            items=items, **asset_kw,
-        ),
-        n=n_val, image_size=list(img), seed=args.seed + 2, labeled=True, **key_kw,
-    ))
+    if _is_synthetic(args.train_file):
+        n_train = _synthetic_n(args.train_file, 512)
+        train = _timed(f"{n_train} train scenes", lambda: cached_synthetic(
+            cache, "scenes",
+            lambda items: SyntheticLocalizerDataset(
+                n_train, image_size=img, seed=args.seed, output_dtype="uint8", items=items, **asset_kw,
+            ),
+            n=n_train, image_size=list(img), seed=args.seed, labeled=False, **key_kw,
+        ))
+    else:
+        train = ImageDataset(args.train_file, image_size=img, seed=args.seed)
+    if _is_synthetic(args.reference_file):
+        n_ref = _synthetic_n(args.reference_file, 1024)
+        pipeline = args.assessor_pipeline
+        reference = _timed(f"{n_ref} reference crops ({pipeline})", lambda: cached_synthetic(
+            cache, "crops",
+            lambda items: SyntheticAssessorDataset(
+                n_ref, output_size=crop, image_size=img, seed=args.seed + 1, output_dtype="uint8",
+                crop_pipeline=pipeline, low_iou_fraction=args.assessor_low_iou, items=items,
+                device=args.device, **asset_kw,
+            ),
+            n=n_ref, crop=list(crop), image_size=list(img), seed=args.seed + 1, pipeline=pipeline,
+            low_iou=args.assessor_low_iou, **key_kw,
+        ))
+    else:
+        reference = LabeledImageDataset(read_labeled_csv(args.reference_file), image_size=crop)
+    if _is_synthetic(args.val_file):
+        n_val = _synthetic_n(args.val_file, 64)
+        val = _timed(f"{n_val} val scenes", lambda: cached_synthetic(
+            cache, "scenes",
+            lambda items: SyntheticLocalizerDataset(
+                n_val, image_size=img, seed=args.seed + 2, labeled=True, output_dtype="uint8",
+                items=items, **asset_kw,
+            ),
+            n=n_val, image_size=list(img), seed=args.seed + 2, labeled=True, **key_kw,
+        ))
+    else:
+        val = LabeledImageDataset(args.val_file, image_size=img)
     return train, reference, val
 
 
 def build_supervised_datasets(args):
     """(labeled train scenes, labeled val scenes) for ``--supervised``."""
+    from loans_tpu_torch.data.datasets import LabeledImageDataset
     from loans_tpu_torch.data.synthetic import SyntheticLocalizerDataset
 
-    n_train = _synthetic_n(args.train_file, 512)
-    train = _timed(f"{n_train} labeled train scenes", lambda: SyntheticLocalizerDataset(
-        n_train, image_size=tuple(args.target_size), seed=args.seed, labeled=True,
-        output_dtype="uint8", **build_asset_kw(args),
-    ))
+    if _is_synthetic(args.train_file):
+        n_train = _synthetic_n(args.train_file, 512)
+        train = _timed(f"{n_train} labeled train scenes", lambda: SyntheticLocalizerDataset(
+            n_train, image_size=tuple(args.target_size), seed=args.seed, labeled=True,
+            output_dtype="uint8", **build_asset_kw(args),
+        ))
+    else:
+        train = LabeledImageDataset(args.train_file, image_size=tuple(args.target_size))
     # the assessor's reference set is not used: generate one crop
     val_args = argparse.Namespace(**vars(args))
     val_args.reference_file = "synthetic:1"
@@ -294,10 +315,69 @@ def manifest(args) -> dict:
     }
 
 
+def _device_pools(args, train_ds, ref_ds, steps_per_call: int, device: torch.device):
+    """``--device-data on``: the datasets (synthetic or files) materialized
+    into pools on ``device``, chunks of ``steps_per_call`` index batches
+    (``data.device_data.device_chunk_batches``); a synthetic reference pool
+    regenerated every ``--assessor-refresh`` iterations."""
+    from loans_tpu_torch.data.device_data import device_chunk_batches, materialize
+    from loans_tpu_torch.data.synthetic import SyntheticAssessorDataset
+
+    refresh = None
+    if ref_ds is None:
+        images, boxes, scores = materialize(train_ds)
+        groups = {"train": {"images": images, "boxes": boxes, "scores": scores}}
+    else:
+        crops, labels = materialize(ref_ds)[:2]
+        groups = {
+            "unlabeled": {"unlabeled": materialize(train_ds)[0]},
+            "reference": {"real": crops, "labels": labels},
+        }
+        if args.assessor_refresh and _is_synthetic(args.reference_file):
+            n_ref = _synthetic_n(args.reference_file, 1024)
+            asset_kw_refresh = build_asset_kw(args)
+
+            def regen_reference(generation: int):
+                ds = SyntheticAssessorDataset(
+                    n_ref, output_size=tuple(args.crop_size), image_size=tuple(args.target_size),
+                    seed=args.seed + 1 + 104729 * generation, output_dtype="uint8",
+                    crop_pipeline=args.assessor_pipeline, low_iou_fraction=args.assessor_low_iou,
+                    device=device, **asset_kw_refresh,
+                )
+                c, lb = materialize(ds)[:2]
+                return {"real": c, "labels": lb}
+
+            refresh = {"reference": (regen_reference, max(args.assessor_refresh // steps_per_call, 1))}
+    pool_mib = sum(a.nbytes for tree in groups.values() for a in tree.values()) / 2**20
+    print(f"data: pools on {device} {pool_mib:.1f} MiB")
+    return device_chunk_batches(groups, args.batch_size, steps_per_call, seed=args.seed, device=device,
+                                refresh=refresh)
+
+
+def _host_batches(args, train_ds, ref_ds):
+    """``--device-data off``: host batches from ``DataLoader``s that repeat
+    (``--num-workers`` threads, epochs shuffled from ``--seed``): the
+    labeled train batches (``--supervised``), or the train and reference
+    streams zipped into ``{'real', 'labels', 'unlabeled'}``, as the JAX
+    CLI zips them."""
+    from loans_tpu_torch.data.loader import DataLoader
+
+    loader_kw = dict(repeat=True, num_workers=args.num_workers, seed=args.seed)
+    train_loader = DataLoader(train_ds, args.batch_size, **loader_kw)
+    if ref_ds is None:
+        yield from train_loader
+        return
+    ref_loader = DataLoader(ref_ds, args.batch_size, **loader_kw)
+    for unlabeled, ref in zip(train_loader, ref_loader):
+        if isinstance(unlabeled, tuple):
+            unlabeled = unlabeled[0]
+        yield {"real": ref[0], "labels": ref[1], "unlabeled": unlabeled}
+
+
 def main(argv=None) -> str:
     """Train; returns the run's log dir."""
-    from loans_tpu_torch.data.device_data import device_chunk_batches, device_eval_batches, materialize
-    from loans_tpu_torch.data.synthetic import SyntheticAssessorDataset
+    from loans_tpu_torch.data.device_data import device_eval_batches
+    from loans_tpu_torch.data.loader import DataLoader, device_prefetch, images_to, padded_collate
     from loans_tpu_torch.evaluation import MAPEvaluator
     from loans_tpu_torch.inference.localizer import set_precision
     from loans_tpu_torch.ops.geometry import Size
@@ -322,7 +402,6 @@ def main(argv=None) -> str:
         raise SystemExit("--device cuda but torch.cuda.is_available() is false; pass --device cpu")
     set_precision()
     img = Size(*args.target_size)
-    crop = Size(*args.crop_size)
 
     timestamp = datetime.datetime.now().strftime("%Y-%m-%d_%H-%M-%S")
     log_dir = os.path.join(args.log_dir, f"{timestamp}_{args.log_name}")
@@ -343,47 +422,30 @@ def main(argv=None) -> str:
         ass_state = None
     else:
         train_ds, ref_ds, val_ds = build_datasets(args)
-    steps_per_call = args.steps_per_call or 8
-    refresh = None
-    if args.supervised:
-        images, boxes, scores = materialize(train_ds)
-        groups = {"train": {"images": images, "boxes": boxes, "scores": scores}}
+    device_data = uses_device_data(args)
+    steps_per_call = (args.steps_per_call or 8) if device_data else 1
+    if device_data:
+        device_batches = _device_pools(args, train_ds, None if args.supervised else ref_ds, steps_per_call, device)
     else:
-        crops, labels = materialize(ref_ds)[:2]
-        groups = {
-            "unlabeled": {"unlabeled": materialize(train_ds)[0]},
-            "reference": {"real": crops, "labels": labels},
-        }
-        if args.assessor_refresh:
-            n_ref = _synthetic_n(args.reference_file, 1024)
-            asset_kw_refresh = build_asset_kw(args)
-
-            def regen_reference(generation: int):
-                ds = SyntheticAssessorDataset(
-                    n_ref, output_size=tuple(crop), image_size=tuple(img),
-                    seed=args.seed + 1 + 104729 * generation, output_dtype="uint8",
-                    crop_pipeline=args.assessor_pipeline, low_iou_fraction=args.assessor_low_iou,
-                    device=device, **asset_kw_refresh,
-                )
-                c, lb = materialize(ds)[:2]
-                return {"real": c, "labels": lb}
-
-            refresh = {"reference": (regen_reference, max(args.assessor_refresh // steps_per_call, 1))}
-    device_batches = device_chunk_batches(
-        groups, args.batch_size, steps_per_call, seed=args.seed, device=device, refresh=refresh
-    )
-    pool_mib = sum(a.nbytes for tree in groups.values() for a in tree.values()) / 2**20
-    print(f"data: pools on {device} {pool_mib:.1f} MiB (uint8 images)")
+        device_batches = device_prefetch(_host_batches(args, train_ds, None if args.supervised else ref_ds),
+                                         device)
 
     # -- eval --------------------------------------------------------------
     eval_batch_size = max(args.batch_size // 2, 1)
     map_eval = MAPEvaluator(img, max_batches=args.eval_batches, bn_warmup=args.eval_bn_warmup)
-    val_batches = device_eval_batches(val_ds, eval_batch_size, device)
-    if args.eval_batches:
-        val_batches = val_batches[: args.eval_batches]
+    if device_data:
+        val_batches = device_eval_batches(val_ds, eval_batch_size, device)
+        if args.eval_batches:
+            val_batches = val_batches[: args.eval_batches]
 
-    def eval_fn(trainer, iteration):
-        return map_eval(trainer.loc_state, iter(val_batches))
+        def eval_fn(trainer, iteration):
+            return map_eval(trainer.loc_state, iter(val_batches))
+    else:
+        val_loader = DataLoader(val_ds, eval_batch_size, shuffle=False, drop_last=True,
+                                num_workers=args.num_workers, collate=padded_collate)
+
+        def eval_fn(trainer, iteration):
+            return map_eval(trainer.loc_state, images_to(val_loader, device, args.eval_batches))
 
     # -- iterations and the step -------------------------------------------
     iterations = args.iterations
@@ -398,7 +460,10 @@ def main(argv=None) -> str:
         assessor_ema_start=args.assessor_ema_start,
     )
     body = supervised_step if args.supervised else alternating_step
-    step = functools.partial(pooled_step, steps_per_call=steps_per_call, config=step_config, body=body)
+    if device_data:
+        step = functools.partial(pooled_step, steps_per_call=steps_per_call, config=step_config, body=body)
+    else:
+        step = functools.partial(body, config=step_config)
     lr_schedule = None
     if args.lr_shift:
         lr_schedule = two_state_lr_shifter(

@@ -1,3 +1,6 @@
 """Training data: the synthetic world (``synthetic``, over ``image_ops``),
-device-resident pools (``device_data``) and on-device augmentation
-(``device_augment``) (counterpart of ``loans_tpu.data``)."""
+datasets over image files (``datasets``, ``png``, ``cv_resize``) with
+their host augmentation (``augment``, ``ssd_augment``), the host loader
+and device prefetch (``loader``), device-resident pools (``device_data``)
+and on-device augmentation (``device_augment``, ``ssd_device``)
+(counterpart of ``loans_tpu.data``)."""

@@ -98,10 +98,11 @@ def encode_batch(
     cy = (matched[..., :2] + matched[..., 2:]) / 2
     hw = matched[..., 2:] - matched[..., :2]
     d_cy, d_hw = default_cychw[:, :2], default_cychw[:, 2:]
-    loc = torch.cat(
-        [(cy - d_cy) / (variance[0] * d_hw), torch.log(torch.clamp(hw, min=1e-8) / d_hw) / variance[1]],
-        dim=-1,
-    )
+    # the log in float64, cast back: on the CPU, the first float32 torch.log
+    # after a large multithreaded elementwise op (a weight init is one) can
+    # lose about half its bits
+    log_hw = torch.log((torch.clamp(hw, min=1e-8) / d_hw).double()).float()
+    loc = torch.cat([(cy - d_cy) / (variance[0] * d_hw), log_hw / variance[1]], dim=-1)
     keep = masked & valid.any(dim=1, keepdim=True)
     conf = torch.where(keep, torch.gather(labels.long(), 1, index) + 1, 0)
     loc = torch.where(keep[..., None], loc, 0.0)

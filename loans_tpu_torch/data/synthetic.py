@@ -16,15 +16,17 @@ the card), the localizer's own operator.
 
 As in the JAX package, ``_parallel_generate`` splits the work into
 ``4 * min(8, os.cpu_count())`` chunks, each with its own stream, so the
-data depend on the host's CPU count. Writing a dataset to image files
-(``generate_dataset``) and its stamps and backgrounds from files, and the
-pinned stamp of classifier pretraining, are not ported.
+data depend on the host's CPU count. ``generate_dataset`` writes a dataset
+to PNG files and an ``images.csv``, with stamps and backgrounds from image
+files where given; its pixels are the JAX tool's. The pinned stamp of
+classifier pretraining is not ported.
 """
 
 from __future__ import annotations
 
 import contextlib
 import copy
+import csv
 import hashlib
 import json
 import os
@@ -197,10 +199,14 @@ class PasteAndCropGenerator:
     naive-zoom mixture and ``low_iou_fraction`` unconstrained crops.
     ``asset_seed`` draws the stamps and backgrounds from a stream of their
     own, so generators with one asset seed share one visual world.
+    ``stamps`` and ``backgrounds`` (RGBA uint8 arrays) replace the
+    procedural ones, which are then not drawn.
     """
 
     def __init__(
         self,
+        stamps: list[np.ndarray] | None = None,
+        backgrounds: list[np.ndarray] | None = None,
         image_size: tuple[int, int] = (224, 224),
         output_size: tuple[int, int] = (75, 75),
         seed: int = 0,
@@ -214,9 +220,9 @@ class PasteAndCropGenerator:
         asset_rng = random.Random(asset_seed) if asset_seed is not None else self.rng
         self.hard = hard
         self.base_bboxes = base_bboxes
-        self.stamps = [make_procedural_stamp(asset_rng) for _ in range(n_procedural)]
+        self.stamps = stamps or [make_procedural_stamp(asset_rng) for _ in range(n_procedural)]
         make_bg = make_hard_background if hard else make_procedural_background
-        self.backgrounds = [make_bg(asset_rng) for _ in range(n_procedural)]
+        self.backgrounds = backgrounds or [make_bg(asset_rng) for _ in range(n_procedural)]
         self.distractors = (
             [make_procedural_distractor(asset_rng) for _ in range(n_procedural)] if hard else []
         )
@@ -576,3 +582,57 @@ class SyntheticLocalizerDataset:
 
     def __getitem__(self, i):
         return self.get_example(i)
+
+
+def generate_dataset(
+    destination: str,
+    num_samples: int,
+    stamps: list[str] | None = None,
+    background_dir: str | None = None,
+    image_size=(224, 224),
+    output_size=(75, 75),
+    zoom_mode: bool = True,
+    seed: int = 0,
+    low_iou_fraction: float = 0.0,
+    base_bboxes: str | None = None,
+) -> str:
+    """Write ``images/<i>.png`` and a tab-separated ``images.csv`` under
+    ``destination``; returns the csv's path. ``zoom_mode``: IoU-labeled
+    crops (labels as ``format(label, '.4f')``); else unlabeled crops of the
+    stamp's box. ``stamps`` and ``background_dir``: image files of the
+    stamps and backgrounds (read as RGBA), else procedural ones;
+    ``base_bboxes``: a bbox json whose box sizes the stamps take. Sizes
+    are (width, height). The pixels are the JAX package's tool's."""
+    from loans_tpu_torch.data.datasets import load_image
+    from loans_tpu_torch.insights.rendering import write_png
+
+    stamp_imgs = [load_image(s, "RGBA") for s in stamps] if stamps else None
+    bg_imgs = None
+    if background_dir:
+        bg_imgs = [load_image(os.path.join(background_dir, f), "RGBA") for f in sorted(os.listdir(background_dir))]
+    gen = PasteAndCropGenerator(
+        stamps=stamp_imgs,
+        backgrounds=bg_imgs,
+        image_size=tuple(image_size),
+        output_size=tuple(output_size),
+        seed=seed,
+        low_iou_fraction=low_iou_fraction,
+        base_bboxes=load_base_bbox_sizes(base_bboxes) if base_bboxes else None,
+    )
+    img_dir = os.path.join(destination, "images")
+    os.makedirs(img_dir, exist_ok=True)
+    rows = []
+    for i in range(num_samples):
+        if zoom_mode:
+            arr, label = gen.sample()
+            rows.append([f"images/{i}.png", format(label, ".4f")])
+        else:
+            scene = gen.paste()
+            crop = image_ops.to_rgb(image_ops.crop(scene.image, tuple(int(v) for v in scene.paste_bbox)))
+            arr = image_ops.resize(crop, tuple(output_size), "bilinear")
+            rows.append([f"images/{i}.png"])
+        write_png(os.path.join(img_dir, f"{i}.png"), arr)
+    path = os.path.join(destination, "images.csv")
+    with open(path, "w") as handle:
+        csv.writer(handle, delimiter="\t").writerows(rows)
+    return path

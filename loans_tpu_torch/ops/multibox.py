@@ -109,10 +109,11 @@ class MultiboxCoder:
         """(N, K, 4) offsets -> (N, K, 4) normalized yxyx boxes, on
         ``mb_loc``'s device. The log-size offset is clipped to [-10, 10]
         before ``exp``, so that untrained outputs cannot overflow into inf
-        boxes (e^10 is ~22000 times the anchor)."""
+        boxes (e^10 is ~22000 times the anchor). The exp runs in float64."""
         d = torch.from_numpy(self.default_bbox).to(mb_loc.device)
         cy = mb_loc[..., :2] * self.variance[0] * d[:, 2:] + d[:, :2]
-        hw = torch.exp(torch.clip(mb_loc[..., 2:] * self.variance[1], -10.0, 10.0)) * d[:, 2:]
+        # the exp in float64, cast back: see data.ssd_device.encode_batch
+        hw = torch.exp(torch.clip(mb_loc[..., 2:] * self.variance[1], -10.0, 10.0).double()).float() * d[:, 2:]
         return torch.cat([cy - hw / 2, cy + hw / 2], dim=-1)
 
 

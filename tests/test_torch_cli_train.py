@@ -113,18 +113,21 @@ def test_cli_matches_jax(tmp_path, mode):
 
 
 def test_cli_refuses_what_the_port_lacks(tmp_path):
+    """The JAX-only tooling and the plotter are refused by name before the
+    log dir is made. Image files and ``--device-data off`` are no longer
+    refused (``test_torch_cli_files.py`` runs them): a list file that does
+    not exist fails as a missing file."""
     for extra, needle in [
         (["--dump-graph"], "StableHLO"),
         (["--profile", "1", "2"], "profiler"),
         (["--plot-interval", "1"], "BBoxPlotter"),
         (["--send-bboxes", "localhost:1"], "BBoxPlotter"),
-        (["--device-data", "off"], "9b"),
     ]:
         with pytest.raises(SystemExit, match=needle):
-            cli.main(ARGV + extra + ["--log-dir", str(tmp_path), "--device", "cpu"])
-    with pytest.raises(SystemExit, match="9b"):
-        cli.main(["train.csv"] + ARGV[1:] + ["--log-dir", str(tmp_path), "--device", "cpu"])
+            cli.main(ARGV + extra + ["--device-data", "off", "--log-dir", str(tmp_path), "--device", "cpu"])
     assert not os.listdir(tmp_path)  # refused before the log dir is made
+    with pytest.raises(FileNotFoundError, match="train.txt"):
+        cli.main([str(tmp_path / "train.txt")] + ARGV[1:] + ["--log-dir", str(tmp_path / "run"), "--device", "cpu"])
 
 
 def test_cli_needs_a_card_unless_told_cpu(tmp_path, monkeypatch):

@@ -19,8 +19,8 @@ flags, and:
   within 1e-5 px of a rounding boundary may print one step apart);
 * resume and ``--force-reset`` evaluate the same snapshots as JAX's;
 * a corrupt snapshot is reported and the sweep goes on; an assessor
-  without snapshots scores nothing; renders of an SSD log dir, image files
-  and a missing card are refused; without matplotlib, ``plot`` still
+  without snapshots scores nothing; renders of an SSD log dir and a missing
+  card are refused, and a missing gt file fails as one; without matplotlib, ``plot`` still
   reports the best snapshot;
 * the parser has JAX's flags and defaults, plus ``--device``.
 """
@@ -59,6 +59,14 @@ def log_dir(tmp_path_factory):
         "--crop-size", "8", "8", "--n-layers", "18", "--iterations", "4", "--log-dir", tmp,
         "--log-interval", "2", "--snapshot-interval", "2", "--eval-batches", "1", "--steps-per-call", "1",
     ])
+    add_port_snapshots(log_dir)
+    assert [i for i, _ in checkpoint.list_snapshots(log_dir, "Localizer_")] == [2, 4]
+    return log_dir
+
+
+def add_port_snapshots(log_dir):
+    """Beside each ``.msgpack`` snapshot of a JAX log dir, the port's
+    ``.pt`` of the same weights (through ``loans_tpu_torch.bridge``)."""
     manifest = checkpoint.load_manifest(log_dir)
     loc = build_model(manifest["localizer"]["model"], **manifest["localizer"]["kwargs"])
     models = {"Localizer": loc, "ResnetAssessor": build_assessor(manifest["assessor"], loc)}
@@ -68,8 +76,6 @@ def log_dir(tmp_path_factory):
         model = models[os.path.basename(path).split("_")[0]]
         state = bridge.to_state_dict(model, raw.get("params", raw), raw.get("batch_stats") or None)
         checkpoint.save_params(path[: -len(".msgpack")] + ".pt", state)
-    assert [i for i, _ in checkpoint.list_snapshots(log_dir, "Localizer_")] == [2, 4]
-    return log_dir
 
 
 def _copy(log_dir, dest):
@@ -177,8 +183,8 @@ def test_refusals(log_dir, tmp_path, monkeypatch):
     checkpoint.save_manifest(str(ssd), {"localizer": {"model": "SSD300", "kwargs": {}}})
     with pytest.raises(SystemExit, match="SSD log dir.*item 13"):  # renders without the score text's font
         evaluate.main(["synthetic:2", str(ssd), "--save-predictions", str(tmp_path / "renders"), "--device", "cpu"])
-    with pytest.raises(SystemExit, match="step 9b"):
-        evaluate.main(["gt.json", log_dir, "--device", "cpu"])
+    with pytest.raises(FileNotFoundError, match="gt.json"):  # files are read now, no longer refused
+        evaluate.main([str(tmp_path / "gt.json"), log_dir, "--device", "cpu"])
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(SystemExit, match="--device cpu"):
         evaluate.main(["synthetic:8", log_dir])

@@ -12,7 +12,12 @@ step, then one with rotation dropout at ratio 1.0 on the plain rotated crop
 (``sampler="rotated"``); then one SSD300 iteration of the SSD training CLI
 on the CPU (the device augmentation on the plain crop, the encoder, the
 multibox loss and the optimizer, and mAP through NMS), its log dir served
-through ``load_inference`` and swept by the evaluation CLI.
+through ``load_inference`` and swept by the evaluation CLI; then image
+files: PNGs written by the port (every row filter) read back by its
+decoder, ``generate_dataset``, the training CLI on an image list, an
+IoU-labeled csv and a labeled csv with the host loader, its log dir swept
+against the csv, the SSD CLI on a gt json with ``--no-augment``, and the
+augmenting SSD transform refused by name without cv2.
 It also checks that importing the package never runs ``nvcc`` and that
 the CUDA kernels of both crops refuse CPU tensors. The sources of the port
 and of ``chip_smoke.py``, which runs on the card, name none of them in an
@@ -150,10 +155,54 @@ assert [e["snapshot_name"] for e in swept.entries] == ["SSD300_1.pt"]
 assert sample_separable_kernel.launches == 0 and not spawned, spawned
 assert not [m for m, v in sys.modules.items()
             if v is not None and m.split(".")[0] in ("jax", "flax", "loans_tpu", "PIL", "cv2", "matplotlib")]
+
+# image files without Pillow or cv2: the port's writer, its PNG decoder,
+# generate_dataset, both training CLIs with the host loader, the sweep
+import json
+from loans_tpu_torch.data import datasets, synthetic as syn
+from loans_tpu_torch.data.ssd_augment import SSDTransform
+from loans_tpu_torch.insights.rendering import write_png
+files = tempfile.mkdtemp()
+crops_csv = syn.generate_dataset(os.path.join(files, "crops"), 8, image_size=(32, 32), output_size=(8, 8))
+os.makedirs(os.path.join(files, "scenes"))
+rows, gt = [], []
+for i, (img, box) in enumerate(scenes.items):
+    write_png(os.path.join(files, "scenes", f"{i}.png"), img, filters=i % 5)
+    rows.append("\t".join([f"scenes/{i}.png"] + [str(float(v)) for v in box]))
+    gt.append({"image": f"scenes/{i}.png", "bounding_boxes": [box.tolist()]})
+    assert np.array_equal(datasets.load_image(os.path.join(files, "scenes", f"{i}.png")), img)
+open(os.path.join(files, "val.csv"), "w").write("\n".join(rows) + "\n")
+open(os.path.join(files, "list.txt"), "w").write("".join(f"scenes/{i}.png\n" for i in range(4)))
+json.dump(gt, open(os.path.join(files, "gt.json"), "w"))
+assert len(datasets.LabeledImageDataset(crops_csv)) == 8
+files_dir = loans_tpu_torch.cli.train_localizer.main([
+    os.path.join(files, "list.txt"), crops_csv, os.path.join(files, "val.csv"), "--batch-size", "2",
+    "--n-layers", "18", "--target-size", "32", "32", "--crop-size", "8", "8", "--iterations", "2",
+    "--log-interval", "2", "--eval-batches", "1", "--num-workers", "2", "--device-data", "off",
+    "--device", "cpu", "--log-dir", files])
+assert "Localizer_2.pt" in os.listdir(files_dir)
+with contextlib.redirect_stdout(io.StringIO()):
+    swept = evaluate.main([os.path.join(files, "val.csv"), files_dir, "-b", "2", "--device", "cpu"])
+assert [e["snapshot_name"] for e in swept.entries] == ["Localizer_2.pt"]
+gt_dir = train_ssd.main([os.path.join(files, "gt.json"), os.path.join(files, "gt.json"), "-b", "1",
+                         "--iterations", "1", "--log-interval", "1", "--eval-interval", "1", "--eval-batches", "1",
+                         "--no-augment", "--device-data", "off", "--device", "cpu", "--log-dir", files])
+assert "SSD300_1.pt" in os.listdir(gt_dir)
+try:
+    SSDTransform(ssd.model.coder(), 300, augment=True)(scenes.items[0][0], scenes.items[0][1][None])
+except RuntimeError as e:
+    assert "cv2" in str(e) and "--no-augment" in str(e), e
+else:
+    raise AssertionError("the augmenting SSD transform ran without cv2")
+assert sample_separable_kernel.launches == 0 and not spawned, spawned
+assert not [m for m, v in sys.modules.items()
+            if v is not None and m.split(".")[0] in ("jax", "flax", "loans_tpu", "PIL", "cv2", "matplotlib")]
+
 import shutil
 shutil.rmtree(out_dir)
 shutil.rmtree(log_dir)
 shutil.rmtree(ssd_root)
+shutil.rmtree(files)
 print("NO_JAX_OK")
 """
 
@@ -168,35 +217,52 @@ def test_port_imports_and_serves_without_jax():
     assert "NO_JAX_OK" in proc.stdout
 
 
-def _imports(paths, banned):
+def _imports(paths, banned, module_level_only=False):
+    """(file, module) of each import of a ``banned`` top-level package in
+    ``paths``; with ``module_level_only``, only those outside functions."""
     offenders = []
     for path in paths:
-        for node in ast.walk(ast.parse(path.read_text())):
+        tree = ast.parse(path.read_text())
+        in_functions = {id(n) for f in ast.walk(tree) if isinstance(f, (ast.FunctionDef, ast.AsyncFunctionDef))
+                        for n in ast.walk(f)}
+        for node in ast.walk(tree):
+            if module_level_only and id(node) in in_functions:
+                continue
             if isinstance(node, ast.Import):
                 names = [a.name for a in node.names]
             elif isinstance(node, ast.ImportFrom):
                 names = [node.module or ""]
             else:
                 continue
-            offenders += [(path.name, n) for n in names if n.split(".")[0] in banned]
+            offenders += [(path.relative_to(ROOT).as_posix(), n) for n in names if n.split(".")[0] in banned]
     return offenders
 
 
 def test_port_sources_import_no_jax():
-    """No module of the port, and not ``chip_smoke.py``, names jax, flax,
-    loans_tpu or PIL in an import, even inside a function."""
-    banned = ("jax", "jaxlib", "flax", "optax", "loans_tpu", "PIL")
-    assert not _imports([*PACKAGE.rglob("*.py"), ROOT / "chip_smoke.py"], banned)
+    """No module of the port, and not ``chip_smoke.py``, names jax, flax or
+    loans_tpu in an import, even inside a function; none imports PIL or
+    cv2 when it is imported. PIL is imported inside a function only by
+    ``data/datasets.py`` (image formats other than PNG, where Pillow is
+    installed)."""
+    sources = [*PACKAGE.rglob("*.py"), ROOT / "chip_smoke.py"]
+    assert not _imports(sources, ("jax", "jaxlib", "flax", "optax", "loans_tpu"))
+    assert not _imports(sources, ("PIL", "cv2"), module_level_only=True)
+    pil = {f for f, _ in _imports(sources, ("PIL",))}
+    assert pil <= {"loans_tpu_torch/data/datasets.py"}, pil
 
 
 def test_training_cli_path_imports_no_cv2():
     """The training CLIs' path (their data, evaluation, training and model
-    modules, and ``chip_smoke.py``) names no cv2 either; only the image
-    CLI and the serving helpers that draw or resize frames use it."""
+    modules, and ``chip_smoke.py``) names no cv2 but in
+    ``data/augment.py::require_cv2``, which the host augmentations of
+    ``data/augment.py`` and ``data/ssd_augment.py`` call when they run;
+    only the image CLI and the serving helpers that draw or resize frames
+    use it otherwise."""
     paths = [PACKAGE / "cli" / "train_localizer.py", PACKAGE / "cli" / "train_ssd.py", ROOT / "chip_smoke.py"]
     for sub in ("data", "evaluation", "train", "models", "ops"):
         paths += list((PACKAGE / sub).rglob("*.py"))
-    assert not _imports(paths, ("cv2",))
+    assert _imports(paths, ("cv2",)) == [("loans_tpu_torch/data/augment.py", "cv2")]
+    assert not _imports(paths, ("cv2",), module_level_only=True)
 
 
 def test_evaluation_path_imports_no_cv2_or_matplotlib():
