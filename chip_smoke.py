@@ -112,13 +112,27 @@ Phases, one line or more each; any failure exits non-zero:
    batch); the loader alone; a traced stretch of steps on the loader (idle
    share); the off run's log dir served and swept against the labeled csv;
    the SSD CLI on the gt json with the host loader and ``--no-augment``
-   (K1 launches 0), and the augmenting transform's refusal without cv2.
+   (K1 launches 0), and the augmenting transform's refusal without cv2;
+20. data-parallel training (``loans_tpu_torch.parallel``): ``torchrun
+   --standalone --nproc_per_node=<cards>`` runs the training CLI (NCCL) at
+   phase 10's configuration for 32 iterations without the pool refresh,
+   against a plain process of the same argv, in turns: the logged losses
+   alike, K1's launches of every rank counted (this script's ``--cli``
+   mode), images/s of both; then two processes on the one card, joined
+   over gloo through ``init_distributed(backend="gloo", ...)``, each on half
+   of every global batch, against one process at the global batch: the
+   pooled alternating step at R-50 (batch 64, 8 steps), the SSD300 step
+   with the augmentation (batch 8, 4 steps) and R-18 on K2 at ratio 0.5
+   (batch 64, 4 steps), per-step losses, the parameters against the
+   update's size, the replicas bit for bit, and each kernel's launches per
+   rank.
 
 The line before the last is a JSON object of the six kernels: launches in
 phase 10, the CLI (K1), and phase 8 (K2), with the launches of every path
 driven (``launches_by_path``; phases 16 and 18 as ``train_ssd``,
 ``serve_ssd`` and ``evaluate_ssd``, phase 19 as ``train_cli_files``,
-``evaluate_files`` and ``train_ssd_files``), errors from phases 2, 2b, 7 and 15,
+``evaluate_files`` and ``train_ssd_files``, phase 20 as ``train_ddp`` (the two
+ranks over gloo, summed) and ``train_cli_torchrun``), errors from phases 2, 2b, 7 and 15,
 K1's forward's times at phase 15's shapes (``ssd_shapes``), times and
 bounds at the training batch: ``ms`` per call (CUDA events, host launch
 included), ``device_ms`` (profiler, calls back to back), ``device_cold_ms``
@@ -138,6 +152,7 @@ import json
 import os
 import statistics
 import subprocess
+import sys
 import tempfile
 import time
 import xml.etree.ElementTree as ET
@@ -2157,6 +2172,412 @@ def files_phase(card: str, work: str) -> dict:
     return {"train": counted["launches"], "evaluate": evaluated, "train_ssd": ssd}
 
 
+# -- phase 20 ---------------------------------------------------------------
+# data-parallel training (loans_tpu_torch.parallel). First torchrun, one
+# process per card (NCCL; this machine's cards), runs the training CLI at
+# phase 10's configuration for 32 iterations, without the pool refresh (its
+# swap chunk follows a thread's timing, so two runs would train on other
+# crops), against a plain process of the same argv, in turns. Both run this
+# script's --cli mode, which counts each process's kernel launches and, under
+# torchrun, all-reduces one tensor over NCCL after the run. Early training
+# is chaotic here: the localizer's loss is mostly the out-of-image sum of
+# crops far outside the scene, and with cuDNN's default algorithms (whose
+# backward sums with atomics in no fixed order) the torchrun run at world
+# size 1 and the plain run differed by 3.7e-3 in the first log entry and by
+# 63% in the second (an H100 80GB HBM3 at 700 W). So every comparison of
+# phase 20 runs cuDNN's deterministic algorithms (deterministic_cudnn). At
+# world size 1 the torchrun run is the plain run's program: its losses per
+# log entry within DDP_TOL["cli_loss"] relative.
+#
+# Then two processes share the one card over gloo, each on half of every
+# global batch: the pooled alternating step at R-50 224->75 (global batch
+# 64, 8 steps), the SSD300 step with the on-device augmentation (global
+# batch 8, 4 steps) and R-18 on K2 at ratio 0.5 (global batch 64, 4 steps).
+# Every step is held against one process's step from the same state: before
+# each step rank 0 copies the replicas' state (parameters, statistics, Adam's
+# moments, the step's generator) into a second copy of the models and steps
+# it on the whole global batch with the group's collectives suspended
+# (parallel.suspended: what a process without a group runs). Two runs left
+# to go apart would not do: the batch split in two changes float32 sums, a
+# weight whose gradient is within rounding of 0 then steps by lr either way,
+# and early training amplifies that (run apart from step 1, the localizer's
+# loss drew apart by 11% at step 6 of R-50 and the SSD's difference grew
+# tenfold a step, an H100 80GB HBM3 at 700 W). Each step, on rank 0:
+# - the losses within DDP_TOL["loss"] relative (one function of the same
+#   weights and batch; measured at most 4.4e-7 at the first step);
+# - the gradients the step applied (averaged over the ranks) of the
+#   localizer's head, the assessor and SSD300 (DDP_GRAD_HELD) within
+#   DDP_TOL["grad"] of their tensor's largest entry (float32 sums of the
+#   batch split in two, cuDNN's algorithms for half the batch; measured at
+#   most 2.0e-3 at the first step, SSD300). The localizer's backbone
+#   gradients are printed, not held: from step 2 on (the head starts at
+#   zero) they leave BatchNorm's backward as small differences of large
+#   terms, dominated by float32 rounding that depends on how the batch's
+#   sums are split, on one process too. Their updates are held by the
+#   share below, and tests/test_torch_parallel.py holds them, through
+#   Adam's moments, against one process and JAX at R-18 64^2 on the CPU;
+# - the BatchNorm running statistics within DDP_TOL["bn_stats"] of each
+#   tensor's largest entry (STEP_TOL's bound, card against CPU);
+# - the parameters within a tenth of lr of one process's on a share
+#   DDP_TOL["params_share"] of their entries. Their largest difference is
+#   printed in units of lr and not held: Adam moves a weight by about lr in
+#   its gradient's sign, so no difference of one step can exceed about 2 lr.
+# The replicas equal bit for bit after the last step. Last, the dry run
+# (python -m loans_tpu_torch.parallel.dryrun) runs its two ranks on the card.
+DDP_ITERATIONS = 32
+DDP_CLI_ARGV = CLI_ARGV + ["--iterations", str(DDP_ITERATIONS), "--snapshot-interval", str(DDP_ITERATIONS),
+                           "--assessor-refresh", "0"]
+DDP_RANKS = 2
+DDP_CASES = {  # case: (global batch, steps)
+    "R-50 K1": (TRAIN_BATCH, 8),
+    "SSD300": (SSD_CROP_BATCH, 4),
+    "R-18 K2 ratio 0.5": (TRAIN_BATCH, 4),
+}
+DDP_GRAD_HELD = ("localizer head", "assessor", "SSD300")
+DDP_TOL = {"cli_loss": 1e-5, "loss": 1e-4, "grad": 1e-2, "bn_stats": STEP_TOL["bn_stats"], "params_share": 0.9}
+
+
+@contextlib.contextmanager
+def deterministic_cudnn():
+    """cuDNN's deterministic algorithms for the block (restored after)."""
+    saved = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = saved
+
+
+def ddp_ssd_pool(n: int = 32) -> dict[str, np.ndarray]:
+    """Noise scenes of 300^2 with one or two gt boxes each (seed 0)."""
+    gen = np.random.default_rng(SEED)
+    yx = gen.uniform(0, 200, (n, 2, 2))
+    hw = gen.uniform(40, 100, (n, 2, 2))
+    return {"scenes": gen.integers(0, 256, (n, 300, 300, 3), dtype=np.uint8),
+            "boxes": np.concatenate([yx, yx + hw], axis=-1).astype(np.float32),
+            "valid": np.stack([np.ones(n, bool), gen.uniform(size=n) < 0.5], axis=1)}
+
+
+def ddp_models(case: str) -> tuple[list[nn.Module], tuple, object]:
+    """``case``'s models on the card (seed ``SEED``), their train states and
+    the step's body."""
+    torch.manual_seed(SEED)
+    if case == "SSD300":
+        model = SSD300().to(DEVICE)
+        body = ssd_device.SSDPooledBody(model.coder(), 300, augment=True)
+        return [model], (create_ssd_train_state(model, SSD_LR), None), body
+    manifest = MANIFEST if case == "R-50 K1" else with_kwargs(n_layers=18, **ROTATED_KWARGS)
+    models = list(build_pair(DEVICE, manifest))
+    return models, tuple(create_train_state(m, LR) for m in models), alternating_step
+
+
+def copy_states(dst: tuple, src: tuple) -> None:
+    """``src``'s parameters, buffers, optimizer state (cloned) and step
+    into ``dst``, whose models have the same layout."""
+    for d, s in zip(dst, src):
+        if s is None:
+            continue
+        with torch.no_grad():
+            for a, b in zip(d.model.state_dict().values(), s.model.state_dict().values()):
+                a.copy_(b)
+        for gd, gs in zip(d.optimizer.param_groups, s.optimizer.param_groups):
+            gd.update({k: v for k, v in gs.items() if k != "params"})
+            for pd, ps in zip(gd["params"], gs["params"]):
+                d.optimizer.state[pd] = {k: v.clone() for k, v in s.optimizer.state[ps].items()}
+        d.step = s.step
+
+
+def grad_group(case: str, i: int, name: str) -> str:
+    """The group of parameter ``name`` of model ``i`` whose gradients are
+    held together (see above)."""
+    if case == "SSD300":
+        return "SSD300"
+    if i == 1:
+        return "assessor"
+    return "localizer head" if name.startswith("param_predictor.") else "localizer backbone"
+
+
+def step_errors(case: str, got: list[nn.Module], want: list[nn.Module], lr: float) -> dict:
+    """The ranks' models (``got``) against one process's (``want``) after a
+    step from the same state: for each group of ``grad_group``, the largest
+    gradient error relative to its tensor's largest entry, where, and the
+    median over its tensors; the same for the floating buffers; the share
+    of parameter entries within 0.1 lr and the largest parameter difference
+    in units of lr."""
+    grad, stats, close, total, largest = {}, 0.0, 0, 0, 0.0
+    for i, (a, b) in enumerate(zip(got, want)):
+        for (name, p), q in zip(a.named_parameters(), b.parameters()):
+            g = p.grad if p.grad is not None else torch.zeros_like(p)
+            w = q.grad if q.grad is not None else torch.zeros_like(q)
+            err = float((g - w).abs().max() / w.abs().max().clamp(min=1e-30))
+            grad.setdefault(grad_group(case, i, name), {})[f"{i}.{name}"] = err
+            d = (p.detach() - q.detach()).abs()
+            close, total = close + int((d <= 0.1 * lr).sum()), total + d.numel()
+            largest = max(largest, float(d.max()))
+        for x, y in zip(a.buffers(), b.buffers()):
+            if x.is_floating_point():
+                stats = max(stats, float((x - y).abs().max() / y.abs().max().clamp(min=1e-30)))
+    grads = {}
+    for group, errs in grad.items():
+        worst = max(errs, key=errs.get)
+        grads[group] = {"largest": errs[worst], "at": worst, "median": statistics.median(errs.values())}
+    return {"grads": grads, "stats": stats, "share": close / total, "largest_lr": largest / lr}
+
+
+def ddp_case(case: str) -> dict:
+    """``DDP_CASES[case]`` on this rank's share of each global batch, one
+    pooled step a call, each step held against one process's step from the
+    same state (made on rank 0, see above). Returns rank 0's record of each
+    step (both sides' losses and seconds, ``step_errors``), this rank's
+    launches in the ranks' steps alone, and the largest difference of any
+    replica's parameter or statistic from rank 0's."""
+    import torch.distributed as dist
+
+    from loans_tpu_torch import parallel
+    from loans_tpu_torch.parallel.dryrun import max_difference_from_rank0
+
+    batch, steps = DDP_CASES[case]
+    lr = SSD_LR if case == "SSD300" else LR
+    main = parallel.rank() == 0
+    models, states, body = ddp_models(case)
+    for m in models:
+        parallel.replicate(m)
+    groups = {"train": ddp_ssd_pool()} if case == "SSD300" else training_pools()
+    chunks = device_chunk_batches(groups, batch, 1, seed=SEED, device=DEVICE)
+    generator = torch.Generator(device=DEVICE).manual_seed(SEED + 20)
+    config = AlternatingConfig(image_size=Size(INPUT, INPUT))
+    if main:  # one process's copy, stepped with the collectives suspended
+        one_models, one_states, one_body = ddp_models(case)
+        one_chunks = device_chunk_batches(groups, batch, 1, seed=SEED, device=DEVICE)
+        one_generator = torch.Generator(device=DEVICE)
+    records = []
+    launches = {c: dict(NO_LAUNCHES) for c in KERNELS}
+    with deterministic_cudnn():
+        for _ in range(steps):
+            if main:
+                copy_states(one_states, states)
+                one_generator.set_state(generator.get_state())
+                torch.cuda.synchronize()
+                start = time.perf_counter()
+                with parallel.suspended():
+                    *one_states, want = pooled_step(*one_states, next(one_chunks), one_generator, steps_per_call=1,
+                                                    config=config, body=one_body)
+                    want = parallel.reduce_metrics([want])[0]
+                one_seconds = time.perf_counter() - start
+            torch.cuda.synchronize()
+            dist.barrier()
+            before = read_launches()
+            start = time.perf_counter()
+            *states, got = pooled_step(*states, next(chunks), generator, steps_per_call=1, config=config, body=body)
+            got = parallel.reduce_metrics([got])[0]
+            seconds = time.perf_counter() - start
+            after = read_launches()
+            for c in KERNELS:
+                for k in COUNTERS:
+                    launches[c][k] += after[c][k] - before[c][k]
+            if main:
+                records.append({"got": got, "want": want, "seconds": seconds, "one_seconds": one_seconds,
+                                **step_errors(case, models, one_models, lr)})
+    chunks.close()
+    if main:
+        one_chunks.close()
+    return {"records": records, "launches": launches, "spread": max_difference_from_rank0(models)}
+
+
+def ddp_worker(rank: int, init_method: str, out_dir: str) -> None:
+    """One of the ranks that share the card: every case of ``DDP_CASES``;
+    each rank saves its launches, rank 0 its records and the spread."""
+    from loans_tpu_torch import parallel
+
+    set_precision()
+    torch.cuda.set_device(0)
+    # NCCL refuses two ranks on one GPU (each communicator needs a device of
+    # its own), so the two ranks sharing this card join over gloo, which
+    # stages CUDA tensors through the host
+    parallel.init_distributed(backend="gloo", init_method=init_method, world_size=DDP_RANKS, rank=rank,
+                              device_type="cuda", timeout=600)
+    try:
+        results = {case: ddp_case(case) for case in DDP_CASES}
+    finally:
+        parallel.shutdown()
+    with open(os.path.join(out_dir, f"launches.{rank}.json"), "w") as f:
+        json.dump({case: r.pop("launches") for case, r in results.items()}, f)
+    if rank == 0:
+        with open(os.path.join(out_dir, "rank0.json"), "w") as f:
+            json.dump(results, f)
+
+
+def ddp_expected_launches(case: str, steps: int) -> dict:
+    if case == "SSD300":  # the augment's window: K1's forward only
+        return {"K1": {"fwd": steps, "bwd_theta": 0, "bwd_images": 0}, "K2": NO_LAUNCHES}
+    used, unused = ("K1", "K2") if case == "R-50 K1" else ("K2", "K1")
+    return {used: {"fwd": steps, "bwd_theta": steps, "bwd_images": 0}, unused: NO_LAUNCHES}
+
+
+def ddp_compare(case: str, result: dict, card: str) -> None:
+    """The ranks' steps against one process's, each from the same state
+    (see above); the replicas; both rates (two ranks on one card: a check
+    of the collective path, not scaling)."""
+    batch, steps = DDP_CASES[case]
+    tag = f"ddp {case}"
+    records = result["records"]
+    check(len(records) == steps, f"{tag}: {len(records)} steps recorded, expected {steps}")
+    for s, r in enumerate(records, 1):
+        got, want = r["got"], r["want"]
+        rel = {k: abs(got[k] - want[k]) / max(abs(want[k]), 1e-12) for k in want if k.startswith("loss")}
+        print(f"{tag}: step {s}: " + ", ".join(
+            f"{k} 2 ranks {got[k]:.6f} 1 process {want[k]:.6f} rel {rel[k]:.2e}" for k in rel)
+            + f" (tol {DDP_TOL['loss']:g})")
+        for group, e in r["grads"].items():
+            held = group in DDP_GRAD_HELD
+            print(f"{tag}: step {s}: {group} gradients applied, largest error {e['largest']:.3e} of its tensor's "
+                  f"largest entry ({e['at']}), median {e['median']:.3e} "
+                  + (f"(tol {DDP_TOL['grad']:g})" if held else "(not held: float32 rounding, see above)"))
+            check(not held or e["largest"] <= DDP_TOL["grad"], f"{tag}: step {s} {group} gradient {e}")
+        print(f"{tag}: step {s}: BatchNorm statistics {r['stats']:.3e} (tol {DDP_TOL['bn_stats']:g}); parameters "
+              f"within 0.1 lr {r['share']:.5f} (tol {DDP_TOL['params_share']:g}), largest difference "
+              f"{r['largest_lr']:.3f} lr (not held: about 2 lr at most)")
+        check(all(np.isfinite(got[k]) for k in rel) and max(rel.values()) <= DDP_TOL["loss"],
+              f"{tag}: step {s} losses {rel} (tol {DDP_TOL['loss']:g})")
+        check(r["stats"] <= DDP_TOL["bn_stats"], f"{tag}: step {s} BatchNorm statistics {r['stats']:.3e}")
+        check(r["share"] >= DDP_TOL["params_share"], f"{tag}: step {s} parameters within 0.1 lr {r['share']:.5f}")
+    print(f"{tag}: the replicas' largest difference {result['spread']:g}")
+    check(result["spread"] == 0.0, f"{tag}: the replicas differ by {result['spread']}")
+    rate = [batch * (steps - 1) / sum(r[key] for r in records[1:]) for key in ("seconds", "one_seconds")]
+    print(f"{tag}: images/s after the first step, global batch {batch}: 2 ranks sharing one card over gloo "
+          f"{rate[0]:.1f}, 1 process {rate[1]:.1f} (the collective path's cost on one card, not scaling) ({card})")
+
+
+def cli_process(tag: str, argv: list[str], nproc: int, work: str) -> dict:
+    """``--cli`` mode of this script in a process of its own, under
+    ``torchrun --standalone --nproc_per_node=nproc`` where ``nproc`` > 0:
+    its log, launches summed over the ranks, backend and wall seconds."""
+    out = os.path.join(work, tag.replace(" ", "_"))
+    cmd = [sys.executable, os.path.abspath(__file__), "--cli", out] + argv + ["--log-dir", out]
+    if nproc:
+        cmd[1:1] = ["-m", "torch.distributed.run", "--standalone", f"--nproc_per_node={nproc}"]
+    start = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
+    wall_s = time.perf_counter() - start
+    check(proc.returncode == 0, f"{tag}: exit {proc.returncode}:\n{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+    records = [json.load(open(f"{out}.{r}.json")) for r in range(max(nproc, 1))]
+    launches = {c: {k: sum(r["launches"][c][k] for r in records) for k in COUNTERS} for c in KERNELS}
+    return {"log": MetricsLog.read(records[0]["log_dir"]), "launches": launches, "wall_s": wall_s,
+            "backend": records[0]["backend"], "world": records[0]["world"]}
+
+
+def ddp_cli_phase(card: str, work: str) -> dict:
+    """torchrun at one process per card against a plain process, in turns."""
+    n = torch.cuda.device_count()
+    turns = []
+    for turn in range(2):
+        plain = cli_process(f"cli plain {turn}", DDP_CLI_ARGV, 0, work)
+        ddp = cli_process(f"cli torchrun {turn}", DDP_CLI_ARGV, n, work)
+        turns.append((plain, ddp))
+        check(ddp["world"] == n and ddp["backend"] == ["nccl", float(n)],
+              f"cli torchrun: world {ddp['world']}, backend and all-reduce {ddp['backend']}")
+        check(len(ddp["log"]) == len(plain["log"]) == DDP_ITERATIONS // STEPS_PER_CALL, "cli torchrun: log entries")
+        for a, b in zip(ddp["log"], plain["log"]):
+            rel = {k: abs(a[k] - b[k]) / max(abs(b[k]), 1e-12)
+                   for k in ("loss_localizer", "loss_dis", "y_fake_mean", "y_real_mean")}
+            print(f"cli torchrun {turn}: iteration {int(a['iteration'])} " + ", ".join(
+                f"{k} {a[k]:.5f} (plain {b[k]:.5f}, rel {rel[k]:.2e})" for k in rel)
+                + f", mean_iou {a['mean_iou']:.4f} (plain {b['mean_iou']:.4f}), map {a['map']:.4f} "
+                f"(plain {b['map']:.4f})")
+            check(all(np.isfinite(a[k]) for k in rel) and max(rel.values()) <= DDP_TOL["cli_loss"],
+                  f"cli torchrun: iteration {a['iteration']} {rel} (tol {DDP_TOL['cli_loss']:g})")
+        evals = len(ddp["log"]) * CLI_EVAL_BATCHES  # rank 0 alone evaluates
+        renders = -(-512 // synthetic.RENDER_BATCH)  # the stn crops, rendered on every rank
+        for run in (plain, ddp):
+            w = run["world"]
+            want = {"fwd": w * (DDP_ITERATIONS + renders) + evals, "bwd_theta": w * DDP_ITERATIONS, "bwd_images": 0}
+            check(run["launches"] == {"K1": want, "K2": NO_LAUNCHES}, f"cli torchrun: launches {run['launches']}")
+    for name, i in (("plain", 0), ("torchrun", 1)):
+        rates = [statistics.median(e["images_per_sec"] for e in t[i]["log"][1:]) for t in turns]
+        walls = [t[i]["wall_s"] for t in turns]
+        print(f"cli {name}: images/s at batch {TRAIN_BATCH}, median of the log entries after the first, turns "
+              f"{', '.join(f'{r:.1f}' for r in rates)}; wall {', '.join(f'{w:.1f}' for w in walls)} s "
+              f"(process start and data included) ({card})")
+    print(f"cli torchrun: {n} process(es) on NCCL, K1 launches {turns[-1][1]['launches']['K1']} "
+          f"= {DDP_ITERATIONS} steps + {renders} render batches a rank + {evals} eval forwards on rank 0")
+    return {"launches": turns[-1][1]["launches"]}
+
+
+def dryrun_on_card(card: str) -> None:
+    """``python -m loans_tpu_torch.parallel.dryrun --processes 2`` on the
+    card: two ranks (gloo, one card), one alternating step, the replicas
+    equal afterwards."""
+    start = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "loans_tpu_torch.parallel.dryrun", "--processes", "2"],
+                          capture_output=True, text=True, timeout=300,
+                          cwd=os.path.dirname(os.path.abspath(__file__)))
+    check(proc.returncode == 0 and "agree across ranks: True" in proc.stdout,
+          f"dryrun: exit {proc.returncode}:\n{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+    for line in proc.stdout.splitlines():
+        if line.startswith("dryrun:"):
+            print(line)
+    print(f"dryrun: {time.perf_counter() - start:.1f} s (process start included) ({card})")
+
+
+def ddp_phase(card: str, work: str) -> dict:
+    """Phase 20: the CLI under torchrun, then two ranks on the card over
+    gloo, each step against one process's, then the dry run. Returns the
+    launches of each path."""
+    from loans_tpu_torch.parallel.dryrun import free_port
+
+    cli = ddp_cli_phase(card, work)
+    out_dir = os.path.join(work, "ddp")
+    os.makedirs(out_dir, exist_ok=True)
+    start = time.perf_counter()
+    torch.multiprocessing.spawn(ddp_worker, args=(f"tcp://127.0.0.1:{free_port()}", out_dir), nprocs=DDP_RANKS,
+                                join=True)
+    print(f"ddp: {DDP_RANKS} ranks on one card over gloo, every case with one process's steps on rank 0, "
+          f"{time.perf_counter() - start:.1f} s (process start included)")
+    with open(os.path.join(out_dir, "rank0.json")) as f:
+        results = json.load(f)
+    per_rank = []
+    for r in range(DDP_RANKS):
+        with open(os.path.join(out_dir, f"launches.{r}.json")) as f:
+            per_rank.append(json.load(f))
+    total = {c: dict(NO_LAUNCHES) for c in KERNELS}
+    for case, (_, steps) in DDP_CASES.items():
+        ddp_compare(case, results[case], card)
+        want = ddp_expected_launches(case, steps)
+        for r, launches in enumerate(per_rank):
+            check(launches[case] == want, f"ddp {case}: rank {r} launched {launches[case]}, expected {want}")
+            for c in KERNELS:
+                for k in COUNTERS:
+                    total[c][k] += launches[case][c][k]
+    print(f"ddp: launches of the {DDP_RANKS} ranks' steps, summed: {total}")
+    dryrun_on_card(card)
+    return {"train_ddp": total, "train_cli_torchrun": cli["launches"]}
+
+
+def cli_worker(argv: list[str]) -> None:
+    """``python3 chip_smoke.py --cli <out> <train_localizer argv>``: the
+    training CLI in this process (under torchrun: this rank's) with the
+    launches counted from 0; under torchrun one tensor is all-reduced over
+    the group after the run. Writes ``<out>.<rank>.json``."""
+    import torch.distributed as dist
+
+    from loans_tpu_torch import parallel
+
+    out, argv = argv[0], argv[1:]
+    with parallel.process_group("cuda"), deterministic_cudnn():
+        reset_launches()
+        log_dir = train_localizer.main(argv)
+        launches = read_launches()
+        backend = None
+        if dist.is_initialized():
+            x = torch.ones(1, device=parallel.bind_device("cuda"))
+            dist.all_reduce(x)
+            backend = [dist.get_backend(), float(x)]
+        record = {"launches": launches, "log_dir": log_dir, "backend": backend, "rank": parallel.rank(),
+                  "world": parallel.world_size()}
+    with open(f"{out}.{record['rank']}.json", "w") as f:
+        json.dump(record, f)
+
+
 def kernel_entry(name: str, source: str, replaces: str, launches: int, err: float, t: dict,
                  in_situ: dict, by_path: dict) -> dict:
     return {
@@ -2208,6 +2629,9 @@ def main() -> None:
         start = time.perf_counter()
         with_files = files_phase(card, work)
         print(f"phase 19: {time.perf_counter() - start:.1f} s")
+        start = time.perf_counter()
+        ddp = ddp_phase(card, work)
+        print(f"phase 20: {time.perf_counter() - start:.1f} s")
     k1_src, k2_src = "separable_sampler.cu", "rotated_sampler.cu"
     launches1, launches2 = cli["launches"], k2_train["launches"]
     in_situ = {**k1_train["device_in_situ_ms"], **k2_train["device_in_situ_ms"]}
@@ -2215,7 +2639,9 @@ def main() -> None:
                  "train_ssd_files": with_files["train_ssd"]}
     no_ssd = dict.fromkeys(ssd_paths, 0)
     files_paths = {kind: {"train_cli_files": with_files["train"][kind],
-                          "evaluate_files": with_files["evaluate"] if kind == "fwd" else 0} for kind in COUNTERS}
+                          "evaluate_files": with_files["evaluate"] if kind == "fwd" else 0,
+                          "train_ddp": ddp["train_ddp"]["K1"][kind],
+                          "train_cli_torchrun": ddp["train_cli_torchrun"]["K1"][kind]} for kind in COUNTERS}
     k1_paths = {
         "fwd": {"serve": serving["launches"], "train": k1_train["launches"]["fwd"], "train_cli": launches1["fwd"],
                 "evaluate": evaluated["K1"], "serve_vbp": vbp_launches, "bench": bench_launches["fwd"], **ssd_paths,
@@ -2234,6 +2660,8 @@ def main() -> None:
         "bwd_theta": {"train_rotated": launches2["bwd_theta"], "evaluate_rotated": 0},
         "bwd_images": {"train_rotated": launches2["bwd_images"], "evaluate_rotated": 0},
     }
+    for kind in COUNTERS:
+        k2_paths[kind]["train_ddp"] = ddp["train_ddp"]["K2"][kind]
     print(json.dumps({"kernels": [
         k1_fwd,
         kernel_entry("separable_sampler_bwd_theta", k1_src, "loans_tpu/ops/stn.py:641", launches1["bwd_theta"],
@@ -2259,4 +2687,7 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--cli"]:
+        cli_worker(sys.argv[2:])
+    else:
+        main()

@@ -23,6 +23,14 @@ step before it runs, and each call runs one step.
 
 The JAX-only tooling and the plotter are refused with the item that lifts
 the refusal (``REFUSED``).
+
+Data-parallel over N GPUs, one process each (``loans_tpu_torch.parallel``)::
+
+    torchrun --standalone --nproc_per_node=N -m loans_tpu_torch.cli.train_localizer ...
+
+``--batch-size`` is the global batch; it must divide by N. Each process
+trains on ``cuda:LOCAL_RANK`` (``--device cpu``: gloo on the CPU) on its
+slice of every batch, and rank 0 writes the log dir.
 """
 
 from __future__ import annotations
@@ -34,6 +42,8 @@ import os
 import time
 
 import torch
+
+from loans_tpu_torch import parallel
 
 # flag -> why the port refuses it (with the ROADMAP.md item that lifts it)
 REFUSED = {
@@ -124,8 +134,34 @@ def get_parser() -> argparse.ArgumentParser:
     p.add_argument("--dump-graph", action="store_true", help="not ported (a JAX StableHLO dump)")
     p.add_argument("--profile", type=int, nargs=2, default=None, metavar=("START", "STEPS"),
                    help="not ported (a JAX profiler trace)")
-    p.add_argument("--device", default="cuda", help="torch device to train on (default cuda)")
+    p.add_argument("--device", default="cuda",
+                   help="torch device to train on (default cuda; under torchrun cuda:LOCAL_RANK)")
     return p
+
+
+def start_devices(args) -> torch.device:
+    """The device of this process, after the process group of ``torchrun``
+    (if any) is up: ``--device``, ``cuda:LOCAL_RANK`` under ``torchrun``.
+    Refuses a missing card and a global batch that the world size does
+    not divide, in the JAX CLI's words."""
+    device = torch.device(args.device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise SystemExit("--device cuda but torch.cuda.is_available() is false; pass --device cpu")
+    device = parallel.bind_device(device)
+    world = parallel.world_size()
+    if args.batch_size % world:
+        raise SystemExit(f"--batch-size {args.batch_size} not divisible by {world} devices")
+    return device
+
+
+def run_log_dir(args) -> str:
+    """``<log_dir>/<timestamp>_<log_name>``, rank 0's timestamp on every
+    rank; rank 0 creates it."""
+    timestamp = parallel.broadcast_object(datetime.datetime.now().strftime("%Y-%m-%d_%H-%M-%S"))
+    log_dir = os.path.join(args.log_dir, f"{timestamp}_{args.log_name}")
+    if parallel.is_main():
+        os.makedirs(log_dir, exist_ok=True)
+    return log_dir
 
 
 def _is_synthetic(spec: str) -> bool:
@@ -362,7 +398,7 @@ def _host_batches(args, train_ds, ref_ds):
     CLI zips them."""
     from loans_tpu_torch.data.loader import DataLoader
 
-    loader_kw = dict(repeat=True, num_workers=args.num_workers, seed=args.seed)
+    loader_kw = dict(repeat=True, num_workers=args.num_workers, seed=args.seed, shard=True)
     train_loader = DataLoader(train_ds, args.batch_size, **loader_kw)
     if ref_ds is None:
         yield from train_loader
@@ -376,6 +412,16 @@ def _host_batches(args, train_ds, ref_ds):
 
 def main(argv=None) -> str:
     """Train; returns the run's log dir."""
+    args = get_parser().parse_args(argv)
+    refused = refusals(args)
+    if refused:
+        raise SystemExit("the port cannot run this: " + "; ".join(refused))
+    with parallel.process_group(torch.device(args.device).type):
+        return train(args, start_devices(args))
+
+
+def train(args, device: torch.device) -> str:
+    """The training run of ``main`` on ``device``."""
     from loans_tpu_torch.data.device_data import device_eval_batches
     from loans_tpu_torch.data.loader import DataLoader, device_prefetch, images_to, padded_collate
     from loans_tpu_torch.evaluation import MAPEvaluator
@@ -393,19 +439,10 @@ def main(argv=None) -> str:
         two_state_lr_shifter,
     )
 
-    args = get_parser().parse_args(argv)
-    refused = refusals(args)
-    if refused:
-        raise SystemExit("the port cannot run this: " + "; ".join(refused))
-    device = torch.device(args.device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise SystemExit("--device cuda but torch.cuda.is_available() is false; pass --device cpu")
     set_precision()
     img = Size(*args.target_size)
-
-    timestamp = datetime.datetime.now().strftime("%Y-%m-%d_%H-%M-%S")
-    log_dir = os.path.join(args.log_dir, f"{timestamp}_{args.log_name}")
-    os.makedirs(log_dir, exist_ok=True)
+    main_rank = parallel.is_main()
+    log_dir = run_log_dir(args)
 
     # -- models + states ---------------------------------------------------
     loc_state, ass_state = build_states(args, device)
@@ -414,7 +451,8 @@ def main(argv=None) -> str:
     if args.pretrained_model:
         checkpoint.restore_params(args.pretrained_model, loc_state.model, skip_prefixes=("param_predictor",))
     config = dict(vars(args))
-    checkpoint.save_manifest(log_dir, manifest(args))
+    if main_rank:
+        checkpoint.save_manifest(log_dir, manifest(args))
 
     # -- data --------------------------------------------------------------
     if args.supervised:
@@ -484,17 +522,21 @@ def main(argv=None) -> str:
         log_interval=args.log_interval,
         eval_fn=eval_fn,
         lr_schedule=lr_schedule,
-        control=CommandChannel(log_dir, use_stdin=args.interactive),
+        control=CommandChannel(log_dir, use_stdin=args.interactive) if main_rank else None,
         keep_snapshots=args.keep_snapshots,
         steps_per_call=steps_per_call,
     )
     try:
         trainer.resume(args.resume_localizer, args.resume_discriminator)
+        for state in (trainer.loc_state, trainer.ass_state):
+            if state is not None:
+                parallel.replicate(state.model)
         if args.assessor_ema and trainer.ass_state is not None:
             # the EMA copy is not in snapshots: start it from the restored
             # live parameters
             trainer.ass_state = trainer.ass_state.with_ema()
-        print(f"training in {log_dir} on {device}")
+        if main_rank:
+            print(f"training in {log_dir} on {device}, {parallel.world_size()} process(es)")
         trainer.run()
     finally:
         device_batches.close()  # waits for a running pool refresh

@@ -25,17 +25,21 @@ json resized as OpenCV resizes) is logged at every ``--eval-interval``.
 The flags are the JAX CLI's, plus ``--device`` (default ``cuda``;
 ``--device cpu`` runs the plain PyTorch crop). What the port lacks is
 refused with the ROADMAP.md item that lifts the refusal (``REFUSED``).
+
+Data-parallel over N GPUs as ``cli.train_localizer``:
+``torchrun --standalone --nproc_per_node=N -m loans_tpu_torch.cli.train_ssd ...``
+with a global ``--batch-size`` that N divides.
 """
 
 from __future__ import annotations
 
 import argparse
-import datetime
 import functools
-import os
 
 import numpy as np
 import torch
+
+from loans_tpu_torch import parallel
 
 # flag -> why the port refuses it (with the ROADMAP.md item that lifts it)
 REFUSED = {
@@ -131,13 +135,14 @@ class SyntheticSSDAdapter:
     """Labeled synthetic scenes -> encoded SSD train tuples on the host
     (``--device-data off`` on synthetic data)."""
 
-    def __init__(self, n, size, coder, seed=0, augment=True, asset_kw=None):
+    def __init__(self, n, size, coder, seed=0, augment=True, asset_kw=None, augment_seed=None):
         from loans_tpu_torch.data.ssd_augment import SSDTransform
         from loans_tpu_torch.data.synthetic import SyntheticLocalizerDataset
 
         self.scenes = SyntheticLocalizerDataset(n, image_size=(size, size), seed=seed, labeled=True,
                                                 output_dtype="uint8", **(asset_kw or {}))
-        self.transform = SSDTransform(coder, size, seed=seed, augment=augment)
+        self.transform = SSDTransform(coder, size, seed=seed if augment_seed is None else augment_seed,
+                                      augment=augment)
 
     def __len__(self):
         return len(self.scenes)
@@ -189,14 +194,18 @@ def build_val(args, size: int):
 
 def build_train(args, size: int, coder):
     """The host train dataset of ``--device-data off``: synthetic scenes
-    or a gt json through the host transform."""
+    or a gt json through the host transform. The transform's draws are
+    seeded with ``--seed`` plus the rank, so that the ranks of a
+    data-parallel run augment independently."""
     from loans_tpu_torch.cli.train_localizer import _is_synthetic, _synthetic_n
     from loans_tpu_torch.data.ssd_augment import SSDDataset
 
+    augment_seed = args.seed + parallel.rank()
     if _is_synthetic(args.train_file):
         return SyntheticSSDAdapter(_synthetic_n(args.train_file, 256), size, coder, seed=args.seed,
-                                   augment=not args.no_augment, asset_kw=_asset_kw(args))
-    return SSDDataset(args.train_file, coder, size, seed=args.seed, augment=not args.no_augment)
+                                   augment=not args.no_augment, asset_kw=_asset_kw(args),
+                                   augment_seed=augment_seed)
+    return SSDDataset(args.train_file, coder, size, seed=augment_seed, augment=not args.no_augment)
 
 
 def host_step(state, ass_state, batch, generator=None):
@@ -210,7 +219,19 @@ def host_step(state, ass_state, batch, generator=None):
 
 def main(argv=None) -> str:
     """Train; returns the run's log dir."""
-    from loans_tpu_torch.cli.train_localizer import _is_synthetic
+    from loans_tpu_torch.cli.train_localizer import start_devices
+
+    args = get_parser().parse_args(argv)
+    refused = refusals(args)
+    if refused:
+        raise SystemExit("the port cannot run this: " + "; ".join(refused))
+    with parallel.process_group(torch.device(args.device).type):
+        return train(args, start_devices(args))
+
+
+def train(args, device: torch.device) -> str:
+    """The training run of ``main`` on ``device``."""
+    from loans_tpu_torch.cli.train_localizer import _is_synthetic, run_log_dir
     from loans_tpu_torch.data.device_data import device_chunk_batches, device_eval_batches
     from loans_tpu_torch.data.loader import DataLoader, device_prefetch, images_to
     from loans_tpu_torch.data.ssd_device import SSDPooledBody
@@ -218,28 +239,21 @@ def main(argv=None) -> str:
     from loans_tpu_torch.inference.localizer import set_precision
     from loans_tpu_torch.train import Trainer, checkpoint, create_ssd_train_state, pooled_step
 
-    args = get_parser().parse_args(argv)
-    refused = refusals(args)
-    if refused:
-        raise SystemExit("the port cannot run this: " + "; ".join(refused))
-    device = torch.device(args.device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise SystemExit("--device cuda but torch.cuda.is_available() is false; pass --device cpu")
     set_precision()
 
     model = build_model(args, device)
     size = model.input_size
     coder = model.coder()
-    timestamp = datetime.datetime.now().strftime("%Y-%m-%d_%H-%M-%S")
-    log_dir = os.path.join(args.log_dir, f"{timestamp}_{args.log_name}")
-    os.makedirs(log_dir, exist_ok=True)
+    main_rank = parallel.is_main()
+    log_dir = run_log_dir(args)
     model_name = args.model.upper()
     config = dict(vars(args))
-    checkpoint.save_manifest(log_dir, {
-        "localizer": {"model": model_name, "kwargs": {"n_fg_class": 1}},
-        "snapshot_names": [model_name],
-        "config": config,
-    })
+    if main_rank:
+        checkpoint.save_manifest(log_dir, {
+            "localizer": {"model": model_name, "kwargs": {"n_fg_class": 1}},
+            "snapshot_names": [model_name],
+            "config": config,
+        })
     state = create_ssd_train_state(model, args.learning_rate)
     if args.pretrained_model:
         checkpoint.restore_params(args.pretrained_model, model)
@@ -262,7 +276,7 @@ def main(argv=None) -> str:
     else:
         steps_per_call = 1
         loader = DataLoader(build_train(args, size, coder), args.batch_size, repeat=True,
-                            num_workers=args.num_workers, seed=args.seed)
+                            num_workers=args.num_workers, seed=args.seed, shard=True)
         device_batches = device_prefetch(iter(loader), device)
         step = host_step
         val_loader = DataLoader(val_ds, eval_batch_size, shuffle=False, drop_last=True,
@@ -301,7 +315,9 @@ def main(argv=None) -> str:
     try:
         if args.resume:
             trainer.resume(loc_path=args.resume)
-        print(f"training {model_name} in {log_dir} on {device}")
+        parallel.replicate(trainer.loc_state.model)
+        if main_rank:
+            print(f"training {model_name} in {log_dir} on {device}, {parallel.world_size()} process(es)")
         trainer.run()
     finally:
         device_batches.close()

@@ -15,6 +15,8 @@ from typing import NamedTuple
 
 import torch
 
+from loans_tpu_torch import parallel
+
 BRIGHTNESS = (-0.12, 0.12)
 CONTRAST = (0.8, 1.25)
 SATURATION = (0.7, 1.3)
@@ -28,10 +30,27 @@ class Jitter(NamedTuple):
     saturation: torch.Tensor
 
 
+def draw_rows(generator: torch.Generator | None, n: int, shape=(), dtype=torch.float32,
+              device: torch.device | None = None, randint: int = 0) -> torch.Tensor:
+    """(n, *shape) uniform [0, 1) draws from ``generator`` (integers in
+    [0, randint) where ``randint`` is given), on ``device``. In
+    data-parallel training the draws are made for the global batch of
+    ``n * W`` rows and this rank keeps its own ``n``
+    (``parallel.local_rows``), so that W ranks draw what one process draws
+    at the global batch."""
+    n_global = n * parallel.data_parallel_size()
+    where = generator.device if generator is not None else device
+    if randint:
+        x = torch.randint(randint, (n_global, *shape), generator=generator, device=where)
+    else:
+        x = torch.rand((n_global, *shape), generator=generator, device=where, dtype=dtype)
+    x = parallel.local_rows(x, n)
+    return x if device is None else x.to(device)
+
+
 def _uniform(n: int, bounds, generator, like: torch.Tensor) -> torch.Tensor:
-    device = generator.device if generator is not None else like.device
-    u = torch.rand((n, 1, 1, 1), generator=generator, device=device, dtype=like.dtype)
-    return (bounds[0] + u * (bounds[1] - bounds[0])).to(like.device)
+    u = draw_rows(generator, n, (1, 1, 1), like.dtype, like.device)
+    return bounds[0] + u * (bounds[1] - bounds[0])
 
 
 def draw_jitter(generator: torch.Generator | None, images: torch.Tensor) -> Jitter:
@@ -43,8 +62,7 @@ def draw_jitter(generator: torch.Generator | None, images: torch.Tensor) -> Jitt
 
 def draw_flips(generator: torch.Generator | None, images: torch.Tensor) -> torch.Tensor:
     """(N,) bool, each image flipped with probability 0.5."""
-    device = generator.device if generator is not None else images.device
-    return (torch.rand(images.shape[0], generator=generator, device=device) < 0.5).to(images.device)
+    return draw_rows(generator, images.shape[0], device=images.device) < 0.5
 
 
 def photometric(images: torch.Tensor, jitter: Jitter) -> torch.Tensor:

@@ -16,6 +16,9 @@ from typing import Callable
 
 import numpy as np
 import torch
+import torch.distributed
+
+from loans_tpu_torch import parallel
 
 
 def materialize(dataset) -> tuple:
@@ -104,8 +107,19 @@ def device_chunk_batches(
     does). Each swap adds one to ``device_chunk_batches.swaps``. A factory
     that raises raises from the chunk that would have swapped its pool, or
     from closing the generator, which waits for a running call.
+
+    In data-parallel training (``loans_tpu_torch.parallel``) every rank
+    uploads the whole pool and draws the same index streams, and keeps its
+    columns ``[r·B/W, (r+1)·B/W)`` of each (K, B) index tensor, as the JAX
+    package shards it on the batch axis. Only rank 0 calls a refresh
+    factory; at every chunk it tells the other ranks whether its pool is
+    ready, and on a swap it broadcasts the new pool (uploaded on rank 0,
+    with the keys and dtypes of the group's first pool), so every rank
+    swaps at the same chunk to the same pool.
     """
     device = torch.device(device)
+    main = parallel.is_main()
+    start, size = parallel.local_batch_slice(batch_size)
 
     def upload(tree):
         return {k: torch.from_numpy(np.ascontiguousarray(a)).to(device) for k, a in tree.items()}
@@ -114,27 +128,30 @@ def device_chunk_batches(
     seeds = {g: seed + j for j, g in enumerate(groups)}
     samplers = {g: IndexSampler(_pool_size(tree), batch_size, seed=seeds[g]).epochs()
                 for g, tree in groups.items()}
-    executor = ThreadPoolExecutor(max_workers=1) if refresh else None
+    executor = ThreadPoolExecutor(max_workers=1) if refresh and main else None
     futures: dict[str, Future] = {}
     generation = {g: 0 for g in groups}
     chunk_i = 0
     try:
         while True:
             for g, (factory, every) in (refresh or {}).items():
-                if g in futures and futures[g].done():
-                    tree = futures.pop(g).result()
-                    pools[g] = upload(tree)
+                ready = parallel.broadcast_object(g in futures and futures[g].done())
+                if ready:
+                    tree = upload(futures.pop(g).result()) if main else None
+                    pools[g] = _broadcast_pool(tree, pools[g])
                     generation[g] += 1
                     samplers[g] = IndexSampler(
-                        _pool_size(tree), batch_size, seed=seeds[g] + 7919 * generation[g]
+                        _pool_size(pools[g]), batch_size, seed=seeds[g] + 7919 * generation[g]
                     ).epochs()
                     device_chunk_batches.swaps += 1
-                    print(f"refresh: pool {g!r} generation {generation[g]} swapped in at chunk {chunk_i}")
-                elif g not in futures and every > 0 and chunk_i > 0 and chunk_i % every == 0:
+                    if main:
+                        print(f"refresh: pool {g!r} generation {generation[g]} swapped in at chunk {chunk_i}")
+                elif main and g not in futures and every > 0 and chunk_i > 0 and chunk_i % every == 0:
                     futures[g] = executor.submit(factory, generation[g] + 1)
             idx = {
                 g: torch.from_numpy(
-                    np.stack([next(samplers[g]) for _ in range(steps_per_call)]).astype(np.int64)
+                    np.stack([next(samplers[g])[start : start + size] for _ in range(steps_per_call)])
+                    .astype(np.int64)
                 ).to(device)
                 for g in groups
             }
@@ -150,15 +167,33 @@ def device_chunk_batches(
 device_chunk_batches.swaps = 0
 
 
-def _pool_size(tree: dict[str, np.ndarray]) -> int:
+def _pool_size(tree: dict) -> int:
     return len(next(iter(tree.values())))
+
+
+def _broadcast_pool(tree: dict[str, torch.Tensor] | None, like: dict[str, torch.Tensor]) -> dict[str, torch.Tensor]:
+    """Rank 0's pool ``tree`` (on the device) on every rank; the other
+    ranks pass ``None`` and receive tensors of ``like``'s keys and dtypes.
+    ``tree`` itself without a group."""
+    if parallel.world_size() == 1:
+        return tree
+    shapes = parallel.broadcast_object({k: tuple(v.shape) for k, v in tree.items()} if tree is not None else None)
+    if tree is None:
+        tree = {k: torch.empty(shape, dtype=like[k].dtype, device=like[k].device) for k, shape in shapes.items()}
+    for k in sorted(tree):
+        torch.distributed.broadcast(tree[k], 0)
+    return tree
 
 
 def device_eval_batches(dataset, batch_size: int, device: str | torch.device = "cuda") -> list:
     """An eval set as a list of ``(images on the device, gt boxes, ...)``
     batches: the images are uploaded once and stay on the device across
     every eval sweep; the rest stays on the host, where the ragged ground
-    truth is matched. A last partial batch is dropped."""
+    truth is matched. A last partial batch is dropped. In data-parallel
+    training only rank 0 evaluates (``train.loop.Trainer``), so the other
+    ranks get no batches and upload nothing."""
+    if not parallel.is_main():
+        return []
     fields = materialize(dataset)
     n = (len(fields[0]) // batch_size) * batch_size
     batches = []

@@ -21,6 +21,8 @@ from typing import Any, Callable, Iterator
 import numpy as np
 import torch
 
+from loans_tpu_torch import parallel
+
 
 def default_collate(examples: list[Any]) -> Any:
     """Stack a list of examples (arrays, or tuples or dicts of arrays) into
@@ -59,6 +61,10 @@ class DataLoader:
     With ``shuffle``, each epoch's order is a permutation drawn from
     ``numpy.random.default_rng((seed, epoch))``, as in the JAX package.
     ``dataset`` has ``__len__`` and ``get_example(i)``.
+
+    With ``shard`` (data-parallel training), ``batch_size`` is the global
+    batch: every rank draws the same order and loads only its slice of
+    each global batch (``parallel.local_batch_slice``), nothing else.
     """
 
     def __init__(
@@ -72,6 +78,7 @@ class DataLoader:
         n_prefetch: int = 2,
         seed: int = 0,
         collate: Callable = default_collate,
+        shard: bool = False,
     ):
         self.dataset = dataset
         self.batch_size = batch_size
@@ -83,6 +90,7 @@ class DataLoader:
         self.seed = seed
         self.collate = collate
         self.epoch = 0
+        self._slice = parallel.local_batch_slice(batch_size) if shard else (0, batch_size)
 
     def _epoch_order(self) -> np.ndarray:
         n = len(self.dataset)
@@ -95,8 +103,9 @@ class DataLoader:
             order = self._epoch_order()
             n = len(order)
             stop = n - self.batch_size + 1 if self.drop_last else n
+            first, size = self._slice
             for start in range(0, max(stop, 0), self.batch_size):
-                yield order[start : start + self.batch_size]
+                yield order[start : start + self.batch_size][first : first + size]
             self.epoch += 1
             if not self.repeat:
                 return

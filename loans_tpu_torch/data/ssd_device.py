@@ -30,7 +30,7 @@ from typing import NamedTuple
 
 import torch
 
-from loans_tpu_torch.data.device_augment import Jitter, draw_jitter, photometric
+from loans_tpu_torch.data.device_augment import Jitter, draw_jitter, draw_rows, photometric
 from loans_tpu_torch.ops.geometry import Size, box_to_theta
 from loans_tpu_torch.ops.multibox import MultiboxCoder
 from loans_tpu_torch.ops.stn import sample_separable, sample_separable_kernel
@@ -126,23 +126,23 @@ class SSDDraws(NamedTuple):
 def draw_ssd_augment(generator: torch.Generator | None, scenes: torch.Tensor) -> SSDDraws:
     """Draw one batch's augmentation from ``generator`` (on its device),
     with the JAX package's distributions; the tensors land on the scenes'
-    device."""
+    device. In data-parallel training each draw is made for the global
+    batch and this rank keeps its rows (``device_augment.draw_rows``)."""
     n, v = scenes.shape[0], CANDIDATES
-    device = generator.device if generator is not None else scenes.device
 
     def uniform(*shape):
-        return torch.rand(shape, generator=generator, device=device).to(scenes.device)
+        return draw_rows(generator, n, shape, device=scenes.device)
 
     return SSDDraws(
         jitter=draw_jitter(generator, scenes),
-        expand=uniform(n, v) < 0.5,
-        ratio=1.0 + 3.0 * uniform(n, v),
-        scale=0.3 + 0.7 * uniform(n, v),
-        aspect=uniform(n, v),
-        uy=uniform(n, v),
-        ux=uniform(n, v),
-        constraint=torch.randint(len(CONSTRAINTS), (n,), generator=generator, device=device).to(scenes.device),
-        flip=uniform(n) < 0.5,
+        expand=uniform(v) < 0.5,
+        ratio=1.0 + 3.0 * uniform(v),
+        scale=0.3 + 0.7 * uniform(v),
+        aspect=uniform(v),
+        uy=uniform(v),
+        ux=uniform(v),
+        constraint=draw_rows(generator, n, device=scenes.device, randint=len(CONSTRAINTS)),
+        flip=uniform() < 0.5,
     )
 
 

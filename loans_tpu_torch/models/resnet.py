@@ -35,6 +35,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from loans_tpu_torch import parallel
+
 BLOCK_CONFIGS: dict[int, Sequence[int]] = {
     18: (2, 2, 2, 2),
     19: (2, 2, 2, 2),
@@ -79,6 +81,13 @@ class BatchNorm2d(nn.BatchNorm2d):
     folds the unbiased one, n/(n-1) larger for n = batch*H*W values per
     channel). Eval mode is ``nn.BatchNorm2d``'s.
 
+    While a data-parallel group of more than one process is active
+    (``loans_tpu_torch.parallel``), train mode takes the statistics of the
+    global batch, as flax's does under the JAX package's sharded step
+    (``parallel.global_batch_norm``: the per-channel sum, sum of squares
+    and count over (N, H, W) summed over the ranks, flax's biased variance
+    E[x²] - E[x]², and a backward that all-reduces its sums too).
+
     As flax's, it computes in float32 at least: a bfloat16 input is
     promoted. With ``out_dtype`` set (the ``norm_dtype`` of
     ``set_dtypes``) the output is cast to it.
@@ -95,6 +104,8 @@ class BatchNorm2d(nn.BatchNorm2d):
     def _normalize(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training:
             return super().forward(x)
+        if parallel.data_parallel_size() > 1:
+            return self._normalize_global(x)
         n = x.numel() // x.shape[1]
         # F.batch_norm leaves momentum * unbiased_var in this zeroed buffer
         # (and updates running_mean itself); rescale it to the biased one.
@@ -105,6 +116,14 @@ class BatchNorm2d(nn.BatchNorm2d):
         )
         with torch.no_grad():
             self.running_var.mul_(1.0 - self.momentum).add_(var_part, alpha=(n - 1) / n)
+            self.num_batches_tracked.add_(1)
+        return y
+
+    def _normalize_global(self, x: torch.Tensor) -> torch.Tensor:
+        y, mean, var = parallel.global_batch_norm(x, self.weight, self.bias, self.eps)
+        with torch.no_grad():
+            self.running_mean.mul_(1.0 - self.momentum).add_(mean, alpha=self.momentum)
+            self.running_var.mul_(1.0 - self.momentum).add_(var, alpha=self.momentum)
             self.num_batches_tracked.add_(1)
         return y
 

@@ -21,6 +21,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from loans_tpu_torch import parallel
+
 
 def default_boxes(
     image_size: int,
@@ -143,9 +145,16 @@ def multibox_loss(
       (at least 1). The hard negatives of an image are its ``k * n_pos``
       largest background losses, ranked by a stable double argsort as in
       the JAX package: of tied losses the lower anchor index ranks first.
+
+    In data-parallel training the positives are those of the global batch
+    (summed over the ranks, outside autograd), and each rank divides its
+    sums by their mean over the W ranks: the mean of the ranks' losses is
+    then the one-process loss of the global batch, and so is the mean of
+    their gradients (``parallel.all_reduce_gradients``).
     """
     positive = gt_conf > 0
-    n_pos_f = torch.clamp(positive.sum().float(), min=1.0)
+    n_pos = parallel.global_sum(positive.sum().float())
+    n_pos_f = torch.clamp(n_pos, min=1.0) / parallel.data_parallel_size()
 
     loc_loss = torch.sum(torch.sum(smooth_l1(mb_loc - gt_loc), dim=-1) * positive) / n_pos_f
 

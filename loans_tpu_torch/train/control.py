@@ -6,6 +6,9 @@ Commands (``shiftlr <factor>``, ``setlr <lr>``, ``quit``,
 ``<log_dir>/control`` and, with ``use_stdin``, from standard input; the
 trainer applies them at the next step-call boundary. A learning-rate
 change takes effect at the next optimizer update, with nothing rebuilt.
+In data-parallel training only rank 0 drains its channel and broadcasts
+what it drained (``train.loop.Trainer``), so every rank applies the same
+commands at the same iteration.
 """
 
 from __future__ import annotations

@@ -8,6 +8,13 @@ intervals; at each log flush the loop waits for the device, so
 ``torch.Generator``, passed to every step call, where the JAX package
 splits keys. Runtime control (LR shifts, early stop, the bbox plotter's
 switch) comes through ``train.control`` at each step-call boundary.
+
+In data-parallel training (``loans_tpu_torch.parallel``) every rank runs
+the loop and the steps; rank 0 alone writes the log dir (the log and the
+snapshots), evaluates (outside the group) and reads the commands, which
+it broadcasts, so every rank applies them at the same iteration. The
+logged metrics are averaged over the ranks at each log flush, and
+``images_per_sec`` counts the global batch.
 """
 
 from __future__ import annotations
@@ -20,6 +27,7 @@ from typing import Any, Callable, Iterable, Iterator
 
 import torch
 
+from loans_tpu_torch import parallel
 from loans_tpu_torch.train import checkpoint
 from loans_tpu_torch.train.control import CommandChannel, apply_commands
 from loans_tpu_torch.train.logger import MetricsLog
@@ -104,7 +112,7 @@ class Trainer:
         self.print_report = print_report
         self.steps_per_call = steps_per_call
         self._last_lr_set: float | None = None
-        self.log = MetricsLog(log_dir, config=config)
+        self.log = MetricsLog(log_dir, config=config) if parallel.is_main() else None
         self.iteration = int(loc_state.step)
         self.bbox_vis_enabled = True
         self._stop = False
@@ -134,9 +142,11 @@ class Trainer:
 
     # -- main loop ------------------------------------------------------------
     def run(self):
-        os.makedirs(self.log_dir, exist_ok=True)
+        main = parallel.is_main()
+        if main:
+            os.makedirs(self.log_dir, exist_ok=True)
         for hook in self.hooks:
-            if hook.at_zero and self.iteration == 0:
+            if main and hook.at_zero and self.iteration == 0:
                 hook.fn(self, 0)
         while self.iteration < self.max_iterations and not self._stop:
             batch = next(self.batches, None)
@@ -148,7 +158,7 @@ class Trainer:
             )
             self.iteration += self.steps_per_call
             self._pending_metrics.append(metrics)
-            self._images_in_interval += _batch_size(batch)
+            self._images_in_interval += _batch_size(batch) * parallel.data_parallel_size()
 
             if self.lr_schedule is not None:
                 lr = self.lr_schedule(self.iteration)
@@ -163,10 +173,10 @@ class Trainer:
             if self.snapshot_interval and _crossed(prev, self.iteration, self.snapshot_interval):
                 self.save_snapshot()
             for hook in self.hooks:
-                if hook.due_span(prev, self.iteration):
+                if main and hook.due_span(prev, self.iteration):
                     hook.fn(self, self.iteration)
-            if self.control is not None:
-                apply_commands(self.control.drain(), self)
+            commands = self.control.drain() if self.control is not None and main else []
+            apply_commands(parallel.broadcast_object(commands), self)
         if self._pending_metrics:
             self._flush_log()
         self.save_snapshot()
@@ -178,19 +188,23 @@ class Trainer:
         for device in devices:
             if device.type == "cuda":
                 torch.cuda.synchronize(device)
+        reduced = parallel.reduce_metrics(pending)
         dt = time.perf_counter() - self._t_interval
         means: dict[str, list[float]] = {}
-        for m in pending:
+        for m in reduced:
             for k, v in m.items():
-                means.setdefault(k, []).append(float(v))
+                means.setdefault(k, []).append(v)
         entry: dict[str, Any] = {k: sum(v) / len(v) for k, v in means.items()}
         entry["iteration"] = self.iteration
         entry["lr"] = float(self.loc_state.learning_rate)
         entry["images_per_sec"] = self._images_in_interval / dt if dt > 0 else 0.0
         self._t_interval = time.perf_counter()
         self._images_in_interval = 0
+        if self.log is None:
+            return
         if self.eval_fn is not None:
-            entry.update(self.eval_fn(self, self.iteration))
+            with parallel.suspended():
+                entry.update(self.eval_fn(self, self.iteration))
         self.log.append(entry)
         if self.print_report:
             print("  ".join(
@@ -199,6 +213,8 @@ class Trainer:
             ))
 
     def save_snapshot(self):
+        if not parallel.is_main():
+            return
         for name, state in zip(self.snapshot_names, (self.loc_state, self.ass_state)):
             if state is None:
                 continue

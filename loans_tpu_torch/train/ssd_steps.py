@@ -92,7 +92,10 @@ def ssd_train_step(state: TrainState, batch) -> tuple[TrainState, dict[str, torc
     """One SSD update on encoded targets, in place (``ssd_steps.py:46-76``):
     ``batch = (images (N, S, S, 3), gt_loc (N, K, 4), gt_conf (N, K))``,
     the loss loc + conf with 3 hard negatives a positive. Returns (state,
-    metrics ``loss``, ``loss/loc``, ``loss/conf``)."""
+    metrics ``loss``, ``loss/loc``, ``loss/conf``). In data-parallel
+    training the loss counts the global batch's positives
+    (``ops.multibox.multibox_loss``) and the update averages the ranks'
+    gradients (``TrainState.apply_gradients``)."""
     images, gt_loc, gt_conf = batch
     model = state.model.train()
     state.optimizer.zero_grad(set_to_none=True)

@@ -17,6 +17,8 @@ import dataclasses
 import torch
 from torch import nn
 
+from loans_tpu_torch import parallel
+
 
 class AdamAmsgrad(torch.optim.Optimizer):
     """Adam with AMSGrad by optax's rule (``optax.amsgrad``), per step t:
@@ -87,7 +89,11 @@ class TrainState:
     ema: nn.Module | None = None
 
     def apply_gradients(self) -> "TrainState":
-        """One optimizer update from the parameters' ``.grad``."""
+        """One optimizer update from the parameters' ``.grad``. In
+        data-parallel training the gradients are first averaged over the
+        ranks (``parallel.all_reduce_gradients``), so every replica takes
+        the same update."""
+        parallel.all_reduce_gradients(p for group in self.optimizer.param_groups for p in group["params"])
         self.optimizer.step()
         self.step += 1
         return self

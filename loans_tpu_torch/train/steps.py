@@ -18,6 +18,12 @@ both models and their optimizers in place. ``supervised_step`` trains the
 localizer alone on gt boxes, and ``pooled_step`` runs K steps of either, or
 of the SSD body (``data.ssd_device``), on batches gathered on the device from
 resident pools.
+
+Data-parallel training (``loans_tpu_torch.parallel``) runs the same steps on
+each rank's slice of the global batch: BatchNorm takes the global batch's
+statistics, the reference crops' augmentation draws for the global batch
+and keeps the rank's rows, and ``TrainState.apply_gradients`` averages the
+gradients over the ranks.
 """
 
 from __future__ import annotations
@@ -28,6 +34,7 @@ from typing import Any, Callable
 import torch
 from torch.func import functional_call
 
+from loans_tpu_torch import parallel
 from loans_tpu_torch.data.device_augment import augment_crops
 from loans_tpu_torch.ops.geometry import Size, corners_to_aabb, theta_corners
 from loans_tpu_torch.ops.losses import direction_loss, huber_loss, out_of_image_loss, smooth_iou_loss
@@ -115,7 +122,7 @@ def alternating_step(
     loss_localizer = mse(y_fake, torch.full_like(y_fake, config.localizer_target))
     corners = theta_corners(theta)
     loss_localizer = loss_localizer + direction_loss(corners, config.image_size)
-    loss_localizer = loss_localizer + out_of_image_loss(corners)
+    loss_localizer = loss_localizer + _global_out_of_image_loss(corners)
     loss_localizer.backward()
     loc_state.apply_gradients()
 
@@ -143,6 +150,15 @@ def alternating_step(
         "y_real_mean": y_real.detach().mean(),
     }
     return loc_state, ass_state, metrics
+
+
+def _global_out_of_image_loss(corners: torch.Tensor) -> torch.Tensor:
+    """``out_of_image_loss``, a sum over the batch, as this rank's share of
+    the global batch's sum: W times its slice's sum in data-parallel
+    training, so that the mean over the ranks of the losses, and of their
+    gradients (``TrainState.apply_gradients`` averages them), is the
+    global sum's, as the mean losses beside it are the global means."""
+    return out_of_image_loss(corners) * parallel.data_parallel_size()
 
 
 def supervised_step(
@@ -184,7 +200,7 @@ def supervised_step(
     iou = smooth_iou_loss(boxes, gt)
     loss = reg + 0.5 * iou
     loss = loss + direction_loss(corners, config.image_size)
-    loss = loss + out_of_image_loss(corners)
+    loss = loss + _global_out_of_image_loss(corners)
     loss.backward()
     loc_state.apply_gradients()
     metrics = {"loss_localizer": loss.detach(), "loss/box": reg.detach(), "loss/iou": iou.detach()}

@@ -276,3 +276,39 @@ def test_evaluation_path_imports_no_cv2_or_matplotlib():
     for sub in ("evaluation", "insights", "models"):
         paths += list((PACKAGE / sub).rglob("*.py"))
     assert not _imports(paths, ("cv2", "matplotlib", "jax", "jaxlib", "flax", "optax", "loans_tpu", "PIL"))
+
+
+PARALLEL_SCRIPT = r"""
+import os, subprocess, sys
+spawned = []
+_Popen = subprocess.Popen
+class _Spy(_Popen):
+    def __init__(self, args, *a, **k):
+        spawned.append(args)
+        super().__init__(args, *a, **k)
+subprocess.Popen = _Spy
+for name in ("jax", "jaxlib", "flax", "optax", "loans_tpu", "PIL", "cv2", "matplotlib", "triton"):
+    sys.modules[name] = None  # any import of them raises ImportError
+os.environ.pop("WORLD_SIZE", None)
+from loans_tpu_torch import parallel
+import loans_tpu_torch.parallel.dryrun
+from loans_tpu_torch.ops import _cuda
+assert _cuda.load_library.cache_info().currsize == 0
+assert not spawned, spawned
+assert not parallel.init_distributed()  # no torchrun environment: one process
+assert (parallel.rank(), parallel.world_size(), parallel.local_batch_slice(8)) == (0, 1, (0, 8))
+print("PARALLEL_NO_JAX_OK")
+"""
+
+
+def test_parallel_imports_without_jax_or_toolchains():
+    """``loans_tpu_torch.parallel`` and its dry run import without jax,
+    flax, ``loans_tpu``, Triton, Pillow, cv2 or matplotlib and run no
+    ``nvcc``; without ``torchrun``'s environment it is one process."""
+    env = {**os.environ, "PYTHONPATH": str(ROOT)}
+    proc = subprocess.run([sys.executable, "-c", PARALLEL_SCRIPT], cwd=str(ROOT), env=env, capture_output=True,
+                          text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    assert "PARALLEL_NO_JAX_OK" in proc.stdout
+    assert not _imports(list((PACKAGE / "parallel").rglob("*.py")),
+                        ("jax", "jaxlib", "flax", "optax", "loans_tpu", "PIL", "cv2", "matplotlib", "triton"))
