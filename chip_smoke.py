@@ -125,15 +125,36 @@ Phases, one line or more each; any failure exits non-zero:
    with the augmentation (batch 8, 4 steps) and R-18 on K2 at ratio 0.5
    (batch 64, 4 steps), per-step losses, the parameters against the
    update's size, the replicas bit for bit, and each kernel's launches per
-   rank.
+   rank;
+21. video, live serving and the training monitor on phase 10's log dir: (a)
+   ``cli.video_inference.main`` on tools/bench_video.py's clip (240 frames
+   of 640x480 of the synthetic world, mp4v, written here) in its six
+   configurations (batch 1 serial and pipelined, 8, 32, gated, with
+   VisualBackprop) and on phase 8's rotated log dir: sustained fps, 240
+   frames written, K1's (K2's) forward once a batch, batch 8's boxes against
+   batch 1's; (b) K1's forward at N = 1 and 8 against its plain version with
+   its times; (c) ``localize``'s single-frame latency with and without the
+   assessor, and an ``AsynchronousLocalizer`` fed the clip through
+   ``Camera`` at 30 frames/s: frames submitted, dropped and answered, K1
+   once an answered frame, the shutdown; (d) the training CLI for 32
+   iterations with the BBoxPlotter every 8 streaming to an ``ImageServer``
+   against the same argv without it, under deterministic cuDNN, and a run
+   with ``--profile 8 4``: losses bit for bit, the canvases saved and received
+   alike, K1 once more a plot, the trace naming K1's kernel, the last canvas
+   against the CPU's; (e) the SSD CLI with its plot hook and the sweep's SSD
+   renders. Without cv2 the video and live CLIs' refusals are checked
+   instead.
 
 The line before the last is a JSON object of the six kernels: launches in
 phase 10, the CLI (K1), and phase 8 (K2), with the launches of every path
 driven (``launches_by_path``; phases 16 and 18 as ``train_ssd``,
 ``serve_ssd`` and ``evaluate_ssd``, phase 19 as ``train_cli_files``,
 ``evaluate_files`` and ``train_ssd_files``, phase 20 as ``train_ddp`` (the two
-ranks over gloo, summed) and ``train_cli_torchrun``), errors from phases 2, 2b, 7 and 15,
-K1's forward's times at phase 15's shapes (``ssd_shapes``), times and
+ranks over gloo, summed) and ``train_cli_torchrun``, phase 21 as
+``serve_video`` (b8_pipelined; K2: ``serve_video_rotated``), ``serve_live``,
+``train_cli_plot`` and ``train_ssd_plot``), errors from phases 2, 2b, 7, 15 and 21,
+K1's forward's times at phase 15's shapes (``ssd_shapes``) and phase 21's
+(``serving_shapes``), times and
 bounds at the training batch: ``ms`` per call (CUDA events, host launch
 included), ``device_ms`` (profiler, calls back to back), ``device_cold_ms``
 (L2 flushed before each call) and ``device_in_situ_ms`` (per launch in the
@@ -148,6 +169,7 @@ import contextlib
 import copy
 import functools
 import importlib.util
+import io
 import json
 import os
 import statistics
@@ -1876,8 +1898,7 @@ def ssd_serve_and_evaluate(card: str, log_dir: str) -> dict:
     check(apart <= 0.01 * kept, f"ssd serve card vs CPU: {apart} of {kept} kept boxes on one device only")
     check(kept > 0 and passed.any(), "ssd serve card vs CPU: nothing compared")
 
-    argv = [f"synthetic:{SSD_BATCH}", log_dir, "-b", str(SSD_BATCH // 2), "--seed", str(SSD_VAL_SEED),
-            "--asset-seed", str(SSD_ASSET_SEED), "--synthetic-assets", "16", "--device", DEVICE]
+    argv = ssd_eval_argv(log_dir)
     snaps = checkpoint.list_snapshots(log_dir, "SSD300_")
     reset_launches()
     start = time.perf_counter()
@@ -1915,7 +1936,7 @@ def ssd_phases(card: str, work: str) -> dict:
     cli = run(16, ssd_cli_phase, card, f"{work}/ssd")
     run(17, ssd_step_against_cpu)
     served = run(18, ssd_serve_and_evaluate, card, cli["log_dir"])
-    return {"crops": crops, "train": cli["launches"], **served}
+    return {"crops": crops, "train": cli["launches"], "log_dir": cli["log_dir"], **served}
 
 
 # -- phase 19 ---------------------------------------------------------------
@@ -2553,6 +2574,433 @@ def ddp_phase(card: str, work: str) -> dict:
     return {"train_ddp": total, "train_cli_torchrun": cli["launches"]}
 
 
+# -- phase 21 ---------------------------------------------------------------
+# video, live serving and the training monitor at full width, on phase 10's
+# log dir (R-50 224->75 and the ResnetAssessor at ch 128, float32). The clip
+# is tools/bench_video.py's: 240 frames of 640x480 of the synthetic world
+# (seed 3, 256 assets), mp4v, served in its six configurations. The video
+# CLI launches K1's forward once a batch. b8_pipelined's boxes against
+# b1_serial's at model scale: the same networks at batch 8 and 1 on the
+# card, float32 sums in cuDNN's order for each batch: 1e-3 px, the bound of
+# the CPU tests against JAX. Phase 8's rotated log dir goes through the
+# video CLI too, on K2's forward.
+CLIP = {"frames": 240, "size": (640, 480), "seed": 3, "assets": 256}
+VIDEO_CONFIGS = {
+    "b1_serial": ["-b", "1", "--no-pipeline"],
+    "b1_pipelined": ["-b", "1"],
+    "b8_pipelined": ["-b", "8"],
+    "b32_pipelined": ["-b", "32"],
+    "b8_gated": ["-b", "8", "-a"],
+    "b8_vbp": ["-b", "8", "-a", "-v"],
+}
+VIDEO_TOL = {"boxes_px": 1e-3}
+K1_SERVING_SHAPES = (1, 8)  # a live frame (and the plotter's), the video CLI's default batch
+LATENCY = {"warmup": 10, "frames": 100}
+LIVE = {"fps": 30, "seconds": 4.0, "shutdown_s": 2.0}
+# the training monitor: phase 10's CLI for 32 iterations, without the pool
+# refresh (whose swap chunk follows a thread's timing), with the plotter
+# every 8 iterations streaming to a server on a thread, against the same
+# argv without it, under deterministic cuDNN (phase 20): the losses equal
+# bit for bit; then 16 iterations with a profiled window. The training's last canvas (on
+# the card) against the port's on the CPU from that iteration's snapshot:
+# the box tile equal where the boxes truncate alike (they agree within
+# SLICE_TOL's 1e-2 px), every other pixel within one uint8 step (the crops
+# agree within 1e-5, the heat maps within VBP_TOL), but the caption's rows
+# where the two scores print apart
+MONITOR_ITERATIONS, PLOT_INTERVAL = 32, 8
+MONITOR_ARGV = CLI_ARGV + ["--iterations", str(MONITOR_ITERATIONS), "--snapshot-interval", str(MONITOR_ITERATIONS),
+                           "--assessor-refresh", "0"]
+MONITOR_PROFILE = ["--profile", "8", "4"]
+CAPTION_ROWS = 16
+# phase 16's SSD300 for 8 iterations in calls of 4 with the plot hook every 4
+SSD_PLOT_ARGV = SSD_ARGV + ["--iterations", "8", "--steps-per-call", "4", "--log-interval", "4",
+                            "--snapshot-interval", "8", "--plot-interval", "4"]
+
+
+def write_clip(path: str) -> None:
+    """tools/bench_video.py's clip, from the port's synthetic world."""
+    import cv2
+
+    ds = synthetic.SyntheticLocalizerDataset(CLIP["frames"], image_size=CLIP["size"], seed=CLIP["seed"],
+                                             output_dtype="uint8", asset_seed=CLIP["seed"] + 9973,
+                                             n_assets=CLIP["assets"])
+    writer = cv2.VideoWriter(path, cv2.VideoWriter_fourcc(*"mp4v"), 24, CLIP["size"])
+    for i in range(len(ds)):
+        writer.write(np.ascontiguousarray(ds[i][..., ::-1]))  # RGB -> BGR
+    writer.release()
+    check(frames_in(path) == CLIP["frames"], f"clip: {frames_in(path)} frames in {path}")
+
+
+def frames_in(path: str) -> int:
+    import cv2
+
+    cap = cv2.VideoCapture(path)
+    n = 0
+    while cap.read()[0]:
+        n += 1
+    cap.release()
+    return n
+
+
+def video_phase(card: str, log_dir: str, rotated_dir: str, work: str, clip: str) -> dict:
+    """The video CLI on the clip in tools/bench_video.py's six
+    configurations, then phase 8's rotated log dir at batch 8."""
+    from loans_tpu_torch.cli import video_inference
+
+    os.makedirs(work, exist_ok=True)
+    runs = {}
+    for name, extra in {**VIDEO_CONFIGS, "b8_rotated": ["-b", "8"]}.items():
+        served = rotated_dir if name == "b8_rotated" else log_dir
+        b = int(extra[extra.index("-b") + 1])
+        torch.cuda.synchronize()
+        reset_launches()
+        start = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):  # the CLI's progress lines
+            out = video_inference.main([served, "-i", clip, "-o", f"{work}/{name}.mp4", *extra, "--device", DEVICE])
+        wall_s = time.perf_counter() - start
+        launches = read_launches()
+        batches = -(-CLIP["frames"] // b)
+        used, other = ("K2", "K1") if name == "b8_rotated" else ("K1", "K2")
+        check(launches == {used: {**NO_LAUNCHES, "fwd": batches}, other: NO_LAUNCHES},
+              f"video {name}: launches {launches} for {batches} batches of {b}")
+        written = [frames_in(out["output"])]
+        if "-v" in extra:
+            written.append(frames_in(video_inference.output_paths(
+                video_inference.get_parser().parse_args([served, "-i", clip, "-o", out["output"]]))[1]))
+        check(out["frames"] == CLIP["frames"] and written == [CLIP["frames"]] * len(written),
+              f"video {name}: {out['frames']} frames served, {written} in the written videos")
+        check(np.isfinite(out["boxes"]).all() and out["boxes"].shape == (CLIP["frames"], 4), f"video {name}: boxes")
+        runs[name] = {**out, "launches": batches}
+        print(f"video {name}: sustained fps {out['fps']:.1f} (after the first batch; {CLIP['frames']} frames of "
+              f"{CLIP['size'][0]}x{CLIP['size'][1]} decoded, resized, served, drawn and encoded in {wall_s:.2f} s of "
+              f"wall time{', VisualBackprop video too' if '-v' in extra else ''}); {used} forward launches {batches} "
+              f"= one a batch of {b}{'; phase 8 rotated log dir' if used == 'K2' else ''} ({card})")
+    err = float(np.abs(runs["b8_pipelined"]["boxes"] - runs["b1_serial"]["boxes"]).max())
+    print(f"video: b8_pipelined boxes against b1_serial max {err:.3e} px at model scale (tol {VIDEO_TOL['boxes_px']:g})")
+    check(err <= VIDEO_TOL["boxes_px"], f"video: b8_pipelined boxes {err} px from b1_serial's")
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof, contextlib.redirect_stdout(io.StringIO()):
+        start = time.perf_counter()
+        video_inference.main([log_dir, "-i", clip, "-o", f"{work}/traced.mp4", *VIDEO_CONFIGS["b8_pipelined"],
+                              "--device", DEVICE])
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - start) * 1e3
+    print_trace(prof, f"the video CLI at b8_pipelined, {CLIP['frames']} frames (start-up included)", wall_ms, card)
+    serial, piped = runs["b1_serial"]["fps"], runs["b1_pipelined"]["fps"]
+    print(f"video: the overlap at batch 1 (decode and drawing of one frame beside the card's work on the next): "
+          f"b1_pipelined {piped:.1f} fps against b1_serial {serial:.1f} ({piped / serial:.3f}x); "
+          + ", ".join(f"{k} {v['fps']:.1f}" for k, v in runs.items()) + f" fps ({card})")
+    return {"K1": runs["b8_pipelined"]["launches"], "K2": runs["b8_rotated"]["launches"]}
+
+
+def k1_serving_shapes(card: str) -> dict:
+    """K1's forward at a live frame's and the video CLI's batch against its
+    plain version (K1_TOL), with its times as phase 2 takes them."""
+    rng = np.random.default_rng(SEED + 21)
+    out, res = Size(CROP, CROP), {}
+    for n in K1_SERVING_SHAPES:
+        images = on_card(rng.uniform(size=(n, INPUT, INPUT, 3)).astype(np.float32))
+        theta = on_card(axis_aligned_theta(rng, n))
+        err = max_err(sample_separable_kernel(images, theta, out), sample_separable(images, theta, out))
+        check(err <= K1_TOL, f"K1 N={n}: max abs err {err} > {K1_TOL}")
+        images_nchw = images.permute(0, 3, 1, 2).contiguous()
+        kernel = lambda: sample_separable_kernel(images, theta, out)  # noqa: E731
+        plain = lambda: sample_separable(images, theta, out)  # noqa: E731
+        library = lambda: library_crop(images_nchw, theta, out)  # noqa: E731
+        bound_ms, bound_by = bound("fwd", images, theta, out)
+        t = {"max_abs_err": err, "ms": cuda_ms(kernel), "plain_ms": cuda_ms(plain), "library_ms": cuda_ms(library),
+             "bound_ms": bound_ms, "bound_by": bound_by}
+        print(f"K1 N={n} {INPUT}^2->{CROP}^2: max_abs_err {err:.3e} (tol {K1_TOL}); per call (CUDA events, host "
+              f"launch included) kernel {t['ms'] * 1e3:.1f} us, plain bmm {t['plain_ms'] * 1e3:.1f} us, library "
+              f"grid_sample {t['library_ms'] * 1e3:.1f} us; bound {bound_ms * 1e3:.2f} us ({bound_by}) ({card})")
+        t.update(one_kernel_device_times("K1", "separable_sampler_fwd", kernel, n, card))
+        kernel_us = None if t["device_ms"] is None else t["device_ms"] * 1e3
+        print(f"K1 N={n}: device time (profiler) kernel {fmt_us(kernel_us)}, plain bmm {fmt_us(device_us(plain))}, "
+              f"library {fmt_us(device_us(library))} ({card})")
+        res[f"({n}, {INPUT}^2, 3) -> {CROP}^2"] = t
+    return res
+
+
+def live_phase(card: str, log_dir: str, clip: str | None) -> int:
+    """``localize``'s single-frame latency with and without the assessor,
+    then an ``AsynchronousLocalizer`` fed the clip through ``Camera`` at
+    LIVE["fps"]: its rate, the frames submitted, dropped and answered, the
+    shutdown, and K1's forward once per answered frame."""
+    from loans_tpu_torch.inference import AsynchronousLocalizer
+    from loans_tpu_torch.inference.camera import Camera
+
+    val = synthetic.SyntheticLocalizerDataset(8, image_size=(INPUT, INPUT), seed=SEED + 2, labeled=True,
+                                              output_dtype="uint8", asset_seed=SEED + 9973, n_assets=16)
+    frames = [val[i][0].astype(np.float32) / 255.0 for i in range(len(val))]
+    for assessor in (False, True):
+        inf = LocalizerInference(log_dir, device=DEVICE, use_assessor=assessor)
+        for i in range(LATENCY["warmup"]):
+            inf.localize(frames[i % len(frames)])
+        times = []
+        for i in range(LATENCY["frames"]):
+            start = time.perf_counter()
+            boxes, rois, scores, _ = inf.localize(frames[i % len(frames)])
+            times.append((time.perf_counter() - start) * 1e3)
+            check(boxes.shape == (1, 4) and np.isfinite(boxes).all(), "live: localize's boxes")
+        print(f"live: localize single-frame latency{' with the assessor (-a)' if assessor else ''}: median "
+              f"{statistics.median(times):.3f} ms, p90 {np.percentile(times, 90):.3f} ms, min {min(times):.3f} ms "
+              f"over {LATENCY['frames']} frames of {INPUT}^2 after {LATENCY['warmup']} (host array to boxes on the "
+              f"host) ({card})")
+        acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+        with torch.profiler.profile(activities=acts) as prof:
+            start = time.perf_counter()
+            for frame in frames[:4]:
+                inf.localize(frame)
+            wall_ms = (time.perf_counter() - start) * 1e3
+        print_trace(prof, f"4 x localize{' with the assessor' if assessor else ''}", wall_ms, card, top=5)
+    if clip is None:
+        print("live: cv2 is not installed: the camera and the worker's feed are not driven")
+        return 0
+    inf = LocalizerInference(log_dir, device=DEVICE, use_assessor=True)
+    answered = []
+
+    class Counted:
+        def localize(self, image):
+            out = inf.localize(image)
+            answered.append(time.perf_counter())
+            return out
+
+    torch.cuda.synchronize()
+    reset_launches()
+    worker = AsynchronousLocalizer(Counted()).start_localization_worker()
+    submitted = dropped = fetched = 0
+    with Camera(clip) as cam:
+        start = time.perf_counter()
+        tick = 0
+        while time.perf_counter() - start < LIVE["seconds"]:
+            frame = np.ascontiguousarray(cam.get_frame()[:, ::-1])  # the live CLI's mirror
+            resized, _ = inf.resize(frame)
+            if worker.submit(inf.preprocess(resized, bgr_to_rgb=True)):
+                submitted += 1
+            else:
+                dropped += 1
+            result = worker.get_result()
+            if result is not None:
+                fetched += 1
+                check(np.isfinite(result[0]).all(), "live: a result's boxes")
+            tick += 1
+            time.sleep(max(0.0, start + tick / LIVE["fps"] - time.perf_counter()))
+    fps = worker.fps
+    stop = time.perf_counter()
+    worker.shutdown()
+    shutdown_s = time.perf_counter() - stop
+    check(not worker._worker.is_alive() and shutdown_s <= LIVE["shutdown_s"],
+          f"live: shutdown took {shutdown_s:.2f} s")
+    check(worker.localization_queue.empty() and worker.image_queue.empty(), "live: queues drained")
+    launches = read_launches()
+    check(launches == {"K1": {**NO_LAUNCHES, "fwd": len(answered)}, "K2": NO_LAUNCHES},
+          f"live: launches {launches} for {len(answered)} answered frames")
+    check(len(answered) >= 1 and submitted >= len(answered), f"live: {submitted} submitted, {len(answered)} answered")
+    offered = submitted + dropped
+    print(f"live: AsynchronousLocalizer fed the clip through Camera at {LIVE['fps']} frames/s for {LIVE['seconds']:g} s "
+          f"(the assessor on): {offered} frames offered, {submitted} submitted, {dropped} dropped while the worker "
+          f"was busy ({dropped / offered:.3f}), {len(answered)} answered ({len(answered) / LIVE['seconds']:.1f}/s), "
+          f"{fetched} fetched; worker fps (its last localize) {fps:.1f}; shutdown in {shutdown_s:.3f} s; K1 forward "
+          f"launches {launches['K1']['fwd']} = the answered frames ({card})")
+    return len(answered)
+
+
+def monitor_phase(card: str, work: str) -> dict:
+    """The training CLI with the plotter streaming to a server against the
+    same argv without it, then a run with a profiled window."""
+    from loans_tpu_torch.insights.bbox_plotter import BBoxPlotter
+    from loans_tpu_torch.insights.progress_server import ImageServer
+
+    received = []
+    server = ImageServer("127.0.0.1", 0, on_image=lambda img, title: received.append((title, img))).start()
+    plot = ["--plot-interval", str(PLOT_INTERVAL), "--send-bboxes", f"127.0.0.1:{server.port}"]
+    plots = list(range(0, MONITOR_ITERATIONS + 1, PLOT_INTERVAL))
+    turns = []
+    try:
+        with deterministic_cudnn():
+            for turn, tag in enumerate(("plot", "plain")):
+                received.clear()
+                torch.cuda.synchronize()
+                reset_launches()
+                start = time.perf_counter()
+                log_dir = train_localizer.main(MONITOR_ARGV + (plot if tag == "plot" else [])
+                                               + ["--log-dir", f"{work}/{tag}{turn}"])
+                torch.cuda.synchronize()
+                run = {"tag": tag, "log_dir": log_dir, "log": MetricsLog.read(log_dir), "launches": read_launches(),
+                       "wall_s": time.perf_counter() - start}
+                turns.append(run)
+                if tag == "plot":
+                    deadline = time.time() + 10
+                    while len(received) < len(plots) and time.time() < deadline:
+                        time.sleep(0.05)
+                    run["received"] = list(received)
+            profiled = train_localizer.main(MONITOR_ARGV + MONITOR_PROFILE + ["--iterations", "16",
+                                                                             "--log-dir", f"{work}/profiled"])
+    finally:
+        server.stop()
+    plain = turns[1]
+    keys = ("loss_localizer", "loss_dis", "y_fake_mean", "y_real_mean", "mean_iou", "map")
+    for run in turns:
+        check(len(run["log"]) == MONITOR_ITERATIONS // STEPS_PER_CALL, f"monitor: {len(run['log'])} log entries")
+        for a, b in zip(run["log"], plain["log"]):
+            check(all(a[k] == b[k] for k in keys), f"monitor: iteration {a['iteration']}: {a} against {b}")
+        got, want = run["launches"], plain["launches"]
+        extra = len(plots) if run["tag"] == "plot" else 0
+        check(got["K1"] == {**want["K1"], "fwd": want["K1"]["fwd"] + extra} and got["K2"] == NO_LAUNCHES,
+              f"monitor: launches {got}, {want} without the plotter")
+        if run["tag"] != "plot":
+            continue
+        plot_dir = run["log_dir"]
+        pngs = sorted(int(f[:-4]) for f in os.listdir(f"{plot_dir}/bboxes"))
+        check(pngs == plots, f"monitor: bboxes/ holds {pngs}")
+        titles = sorted(int(t.split()[-1]) for t, _ in run["received"])
+        check(titles == plots, f"monitor: the server got {titles}")
+        for title, img in run["received"]:
+            check(np.array_equal(img, read_png(f"{plot_dir}/bboxes/{title.split()[-1]}.png")),
+                  f"monitor: the frame of {title} differs from its PNG")
+    plot_dir = turns[0]["log_dir"]
+    rates = {tag: [[e["images_per_sec"] for e in r["log"]] for r in turns if r["tag"] == tag] for tag in ("plot", "plain")}
+    for i, e in enumerate(plain["log"]):
+        with_, without = [r[i] for r in rates["plot"]], [r[i] for r in rates["plain"]]
+        print(f"monitor: iteration {int(e['iteration'])} " + " ".join(f"{k} {e[k]:.5f}" for k in keys[:2])
+              + f" (equal bit for bit in the {len(turns)} runs); images_per_sec with the plotter every {PLOT_INTERVAL} "
+              f"{', '.join(f'{r:.1f}' for r in with_)}, without {', '.join(f'{r:.1f}' for r in without)} ({card})")
+    # the plotter's cost per log entry: the entries after the first (which
+    # holds the plot at iteration 0 and every run's warm-up)
+    per_entry = [STEPS_PER_CALL * TRAIN_BATCH * (1 / statistics.median(w[i] for w in rates["plot"])
+                                                  - 1 / statistics.median(w[i] for w in rates["plain"]))
+                 for i in range(1, len(plain["log"]))]
+    walls = ", ".join(f"{r['wall_s']:.1f}" for r in turns)
+    print(f"monitor: the plotter costs {', '.join(f'{t * 1e3:.1f}' for t in per_entry)} ms a plot (each log entry "
+          f"after the first: entry time with it less without), a log entry of {STEPS_PER_CALL} steps "
+          f"{1e3 * STEPS_PER_CALL * TRAIN_BATCH / statistics.median(r for w in rates['plain'] for r in w[1:]):.1f} ms "
+          f"without it; {len(plots)} canvases ({read_png(f'{plot_dir}/bboxes/0.png').shape}) a run, saved and "
+          f"streamed, equal pixel for pixel; K1 launches {turns[0]['launches']['K1']} with the plotter = "
+          f"{plain['launches']['K1']['fwd']} + {len(plots)} plots; wall "
+          f"{walls} s (data generation included) ({card})")
+    traces = os.listdir(f"{profiled}/profile")
+    with open(f"{profiled}/profile/{traces[0]}") as f:
+        text = f.read()
+    check(len(traces) == 1 and "separable_sampler_fwd_kernel" in text,
+          f"monitor: profile traces {traces}, separable_sampler_fwd_kernel named: "
+          f"{'separable_sampler_fwd_kernel' in text}")
+    print(f"monitor: --profile {' '.join(MONITOR_PROFILE[1:])} wrote {traces[0]} ({len(text) / 2**20:.1f} MiB, Chrome "
+          f"JSON) naming separable_sampler_fwd_kernel {text.count('separable_sampler_fwd_kernel')} times ({card})")
+
+    # the training's last canvas, drawn on the card, against the CPU's from
+    # the snapshot of that iteration
+    args = train_localizer.get_parser().parse_args(MONITOR_ARGV)
+    val = synthetic.SyntheticLocalizerDataset(
+        train_localizer._synthetic_n(args.val_file, 64), image_size=tuple(args.target_size), seed=args.seed + 2,
+        labeled=True, output_dtype="uint8", **train_localizer.build_asset_kw(args))
+    image, gt = val.get_example(0)[:2]
+    manifest = checkpoint.load_manifest(plot_dir)
+    boxes, scores = {}, {}
+    for device in (DEVICE, "cpu"):
+        loc = build_model("Localizer", **manifest["localizer"]["kwargs"])
+        loc.load_state_dict(checkpoint.load_params(f"{plot_dir}/Localizer_{MONITOR_ITERATIONS}.pt"))
+        ass = build_assessor(manifest["assessor"], loc)
+        ass.load_state_dict(checkpoint.load_params(f"{plot_dir}/ResnetAssessor_{MONITOR_ITERATIONS}.pt"))
+        plotter = BBoxPlotter(image, f"{work}/canvas_{device}", gt_bbox=np.asarray(gt).reshape(-1, 4))
+        out = plotter.forward(loc.to(device), ass.to(device))
+        boxes[device], scores[device] = out[1], float(np.ravel(out[2])[0])
+        if device == "cpu":
+            cpu_canvas = plotter.compose(*out)
+    card_canvas = read_png(f"{plot_dir}/bboxes/{MONITOR_ITERATIONS}.png")
+    check(card_canvas.shape == cpu_canvas.shape, f"monitor canvas: {card_canvas.shape} vs {cpu_canvas.shape}")
+    diff = np.abs(card_canvas.astype(int) - cpu_canvas.astype(int)).max(axis=-1)
+    box_err = float(np.abs(boxes[DEVICE] - boxes["cpu"]).max())
+    same_caption = f"{scores[DEVICE]:.3f}" == f"{scores['cpu']:.3f}"
+    body = diff if same_caption else diff[:-CAPTION_ROWS]
+    same_boxes = np.array_equal(np.trunc(boxes[DEVICE]), np.trunc(boxes["cpu"]))
+    print(f"monitor canvas card vs CPU (iteration {MONITOR_ITERATIONS}, {card_canvas.shape}): boxes max {box_err:.3e} px "
+          f"(tol {SLICE_TOL['boxes_px']:g}), truncated alike {same_boxes}; box tile pixels apart "
+          f"{int((body[:, :INPUT] > 0).sum())}; other pixels max {int(body[:, INPUT:].max())} levels apart (tol 1), "
+          f"{int((diff > 0).sum())} in all; caption score card {scores[DEVICE]:.5f} CPU {scores['cpu']:.5f}")
+    check(box_err <= SLICE_TOL["boxes_px"], f"monitor canvas: boxes {box_err} px apart")
+    check(not same_boxes or not body[:, :INPUT].any(), "monitor canvas: the box tiles differ")
+    check(int(body.max()) <= 1, f"monitor canvas: {int(body.max())} levels apart")
+    return dict(turns[0]["launches"]["K1"])
+
+
+def ssd_eval_argv(log_dir: str) -> list[str]:
+    """The sweep of phase 16's log dir on the SSD CLI's val split."""
+    return [f"synthetic:{SSD_BATCH}", log_dir, "-b", str(SSD_BATCH // 2), "--seed", str(SSD_VAL_SEED),
+            "--asset-seed", str(SSD_ASSET_SEED), "--synthetic-assets", "16", "--device", DEVICE]
+
+
+def ssd_plot_phase(card: str, work: str, ssd_log_dir: str) -> int:
+    """The SSD CLI with its plot hook, and the sweep's SSD renders (or,
+    without Pillow, their refusal)."""
+    run = ssd_cli_run("ssd plot", SSD_PLOT_ARGV, card, f"{work}/ssd_plot")
+    plots = sorted(os.listdir(f"{run['log_dir']}/bboxes"))
+    check(plots == ["0.png", "4.png", "8.png"], f"ssd plot: bboxes/ holds {plots}")
+    shapes = {read_png(f"{run['log_dir']}/bboxes/{p}").shape for p in plots}
+    check(shapes == {(300, 300, 3)}, f"ssd plot: canvases of {shapes}")
+    print(f"ssd plot: the plot hook drew iterations 0, 4 and 8 ({shapes.pop()}); K1 forward once an iteration, "
+          f"none for a plot ({card})")
+    argv = ssd_eval_argv(ssd_log_dir) + ["--force-reset", "--save-predictions", f"{work}/ssd_renders"]
+    if not importlib.util.find_spec("PIL"):
+        try:
+            evaluate.main(argv)
+        except SystemExit as e:
+            check("Pillow is not installed" in str(e), f"ssd renders: the refusal {e}")
+            print(f"ssd renders: without Pillow the SSD renders refuse by name: {e}")
+        else:
+            check(False, "ssd renders: ran without Pillow")
+        return run["launches"]
+    reset_launches()
+    start = time.perf_counter()
+    results = evaluate.main(argv)
+    wall_s = time.perf_counter() - start
+    launches = read_launches()
+    check(launches == {"K1": NO_LAUNCHES, "K2": NO_LAUNCHES}, f"ssd renders: launches {launches}")
+    for _, path in checkpoint.list_snapshots(ssd_log_dir, "SSD300_"):
+        it = os.path.basename(path)[len("SSD300_"):-len(".pt")]
+        renders = sorted(os.listdir(f"{work}/ssd_renders/{it}"))
+        check(len(renders) == SSD_BATCH, f"ssd renders: {len(renders)} renders of iteration {it}")
+        check(read_png(f"{work}/ssd_renders/{it}/0.png").shape == (300, 300, 3), "ssd renders: a render's shape")
+    print(f"ssd renders: --save-predictions on phase 16's log dir: {len(results.entries)} snapshots x {SSD_BATCH} "
+          f"renders with score text in {wall_s:.2f} s; K1 launches 0 ({card})")
+    return run["launches"]
+
+
+def phase21(card: str, work: str, cli_log_dir: str, rotated_dir: str, ssd_log_dir: str) -> dict:
+    """Phase 21 (a)-(e), each part with its seconds; the launches of the
+    paths it adds."""
+    out, timed = {}, {}
+
+    def part(name, fn, *args):
+        start = time.perf_counter()
+        result = fn(*args)
+        timed[name] = time.perf_counter() - start
+        return result
+
+    clip = None
+    if importlib.util.find_spec("cv2"):
+        clip = f"{work}/clip.mp4"
+        part("clip", write_clip, clip)
+        out["serve_video"] = part("a", video_phase, card, cli_log_dir, rotated_dir, f"{work}/video", clip)
+    else:
+        from loans_tpu_torch.cli import live_inference, video_inference
+
+        for cli, argv in ((video_inference, [cli_log_dir, "-i", "clip.mp4"]), (live_inference, [cli_log_dir])):
+            try:
+                cli.main(argv + ["--device", DEVICE])
+            except SystemExit as e:
+                check("OpenCV (cv2)" in str(e), f"{cli.__name__}: the refusal {e}")
+                print(f"video: without cv2 {cli.__name__} refuses by name: {e}")
+            else:
+                check(False, f"{cli.__name__} ran without cv2")
+        out["serve_video"] = {"K1": 0, "K2": 0}
+    out["serving_shapes"] = part("b", k1_serving_shapes, card)
+    out["serve_live"] = part("c", live_phase, card, cli_log_dir, clip)
+    out["train_cli_plot"] = part("d", monitor_phase, card, f"{work}/monitor")
+    out["train_ssd_plot"] = part("e", ssd_plot_phase, card, f"{work}/monitor", ssd_log_dir)
+    print("phase 21: " + ", ".join(f"({k}) {v:.1f} s" for k, v in timed.items()))
+    return out
+
+
 def cli_worker(argv: list[str]) -> None:
     """``python3 chip_smoke.py --cli <out> <train_localizer argv>``: the
     training CLI in this process (under torchrun: this rank's) with the
@@ -2632,6 +3080,9 @@ def main() -> None:
         start = time.perf_counter()
         ddp = ddp_phase(card, work)
         print(f"phase 20: {time.perf_counter() - start:.1f} s")
+        start = time.perf_counter()
+        monitor = phase21(card, work, cli["log_dir"], rotated_dir, ssd["log_dir"])
+        print(f"phase 21: {time.perf_counter() - start:.1f} s")
     k1_src, k2_src = "separable_sampler.cu", "rotated_sampler.cu"
     launches1, launches2 = cli["launches"], k2_train["launches"]
     in_situ = {**k1_train["device_in_situ_ms"], **k2_train["device_in_situ_ms"]}
@@ -2642,19 +3093,26 @@ def main() -> None:
                           "evaluate_files": with_files["evaluate"] if kind == "fwd" else 0,
                           "train_ddp": ddp["train_ddp"]["K1"][kind],
                           "train_cli_torchrun": ddp["train_cli_torchrun"]["K1"][kind]} for kind in COUNTERS}
+    monitor_paths = {kind: {"serve_video": monitor["serve_video"]["K1"] if kind == "fwd" else 0,
+                            "serve_live": monitor["serve_live"] if kind == "fwd" else 0,
+                            "train_cli_plot": monitor["train_cli_plot"][kind],
+                            "train_ssd_plot": monitor["train_ssd_plot"] if kind == "fwd" else 0} for kind in COUNTERS}
     k1_paths = {
         "fwd": {"serve": serving["launches"], "train": k1_train["launches"]["fwd"], "train_cli": launches1["fwd"],
                 "evaluate": evaluated["K1"], "serve_vbp": vbp_launches, "bench": bench_launches["fwd"], **ssd_paths,
-                **files_paths["fwd"]},
+                **files_paths["fwd"], **monitor_paths["fwd"]},
         "bwd_theta": {"train": k1_train["launches"]["bwd_theta"], "train_cli": launches1["bwd_theta"],
-                      "evaluate": 0, "bench": bench_launches["bwd_theta"], **no_ssd, **files_paths["bwd_theta"]},
+                      "evaluate": 0, "bench": bench_launches["bwd_theta"], **no_ssd, **files_paths["bwd_theta"],
+                      **monitor_paths["bwd_theta"]},
         "bwd_images": {"train": 0, "train_cli": launches1["bwd_images"], "evaluate": 0, "bench": 0, **no_ssd,
-                       **files_paths["bwd_images"]},
+                       **files_paths["bwd_images"], **monitor_paths["bwd_images"]},
     }
     k1_fwd = kernel_entry("separable_sampler_fwd", k1_src, "loans_tpu/ops/stn.py:421", launches1["fwd"],
-                          max([k1["max_abs_err"]] + [t["max_abs_err"] for t in ssd["crops"].values()]),
+                          max([k1["max_abs_err"]] + [t["max_abs_err"] for t in ssd["crops"].values()]
+                              + [t["max_abs_err"] for t in monitor["serving_shapes"].values()]),
                           k1["times"][TRAIN_BATCH], in_situ, k1_paths["fwd"])
     k1_fwd["ssd_shapes"] = {f"({SSD_CROP_BATCH}, {s}^2, 4) -> {s}^2": t for s, t in ssd["crops"].items()}
+    k1_fwd["serving_shapes"] = monitor["serving_shapes"]
     k2_paths = {
         "fwd": {"train_rotated": launches2["fwd"], "evaluate_rotated": evaluated["K2"]},
         "bwd_theta": {"train_rotated": launches2["bwd_theta"], "evaluate_rotated": 0},
@@ -2662,6 +3120,7 @@ def main() -> None:
     }
     for kind in COUNTERS:
         k2_paths[kind]["train_ddp"] = ddp["train_ddp"]["K2"][kind]
+        k2_paths[kind]["serve_video_rotated"] = monitor["serve_video"]["K2"] if kind == "fwd" else 0
     print(json.dumps({"kernels": [
         k1_fwd,
         kernel_entry("separable_sampler_bwd_theta", k1_src, "loans_tpu/ops/stn.py:641", launches1["bwd_theta"],

@@ -10,8 +10,8 @@ the best snapshot. The flags and defaults are the JAX CLI's, plus
 ``--device`` (default ``cuda``; ``--device cpu`` runs the plain PyTorch
 versions of the kernels). The ground truth is ``synthetic[:N]`` or a
 labeled csv or json (``data.datasets.LabeledImageDataset``, resized to
-the model's input size). Renders of an SSD log dir are refused with the
-item that lifts the refusal.
+the model's input size). Renders of an SSD log dir draw each detection's
+score with Pillow's font: without Pillow they are refused by name.
 """
 
 from __future__ import annotations
@@ -86,6 +86,7 @@ def main(argv=None):
     """Sweep; returns the ``EvalResults``."""
     from loans_tpu_torch.data.loader import DataLoader, padded_collate
     from loans_tpu_torch.evaluation.evaluator import SSD_RENDERS_REFUSED, Evaluator
+    from loans_tpu_torch.insights.rendering import pillow_installed
 
     args = get_parser().parse_args(argv)
     if torch.device(args.device).type == "cuda" and not torch.cuda.is_available():
@@ -98,7 +99,7 @@ def main(argv=None):
         use_assessor=args.assessor,
         device=args.device,
     )
-    if evaluator.is_ssd and args.save_predictions:
+    if evaluator.is_ssd and args.save_predictions and not pillow_installed():
         raise SystemExit(f"the port cannot run this: {SSD_RENDERS_REFUSED}")
     ds = build_dataset(args, evaluator.image_size)
 

@@ -21,8 +21,15 @@ step before it runs, and each call runs one step.
 ``log`` and ``<Name>_<iter>.pt`` snapshots, which
 ``inference.LocalizerInference`` serves.
 
-The JAX-only tooling and the plotter are refused with the item that lifts
-the refusal (``REFUSED``).
+``--plot-interval N`` runs the BBoxPlotter (``insights.bbox_plotter``) at
+iteration 0 and every N iterations on ``--plot-image`` or the first val
+scene, writing ``<log_dir>/bboxes/<iteration>.png`` and, with
+``--send-bboxes HOST:PORT``, streaming each canvas to a progress server
+(``cli.show_progress``); its caption needs Pillow, so without Pillow the
+flag is refused by name. ``--profile START STEPS`` writes a
+``torch.profiler`` trace of those iterations under ``<log_dir>/profile``
+(``train.profiling.ProfileHook``). ``--dump-graph`` is refused
+(``REFUSED``): the port has no graph to dump.
 
 Data-parallel over N GPUs, one process each (``loans_tpu_torch.parallel``)::
 
@@ -41,16 +48,18 @@ import functools
 import os
 import time
 
+import numpy as np
 import torch
 
 from loans_tpu_torch import parallel
 
-# flag -> why the port refuses it (with the ROADMAP.md item that lifts it)
+# flag -> why the port refuses it
 REFUSED = {
     "dump_graph": "--dump-graph writes the JAX step's StableHLO; the port has no graph to dump",
-    "profile": "--profile takes a JAX profiler trace; not ported (ROADMAP.md Queue 1 item 13)",
-    "plot_interval": "--plot-interval needs the BBoxPlotter (ROADMAP.md Queue 1 item 13)",
-    "send_bboxes": "--send-bboxes needs the BBoxPlotter (ROADMAP.md Queue 1 item 13)",
+    "plot_pillow": "--plot-interval: the BBoxPlotter's caption is drawn with Pillow's font, and Pillow is not "
+                   "installed",
+    "plot_supervised": "--plot-interval with --supervised: the BBoxPlotter scores the crop with the assessor, "
+                       "which --supervised does not train",
 }
 
 
@@ -112,9 +121,10 @@ def get_parser() -> argparse.ArgumentParser:
                    help="bfloat16 compute (convs AND batchnorm outputs; params, optimizer and the "
                    "crop stay float32)")
     p.add_argument("--bn-f32", action="store_true", help="keep BatchNorm outputs float32 under --bf16")
-    p.add_argument("--plot-image", default=None, help="image rendered by the BBoxPlotter (not ported)")
-    p.add_argument("--plot-interval", type=int, default=0, help="BBoxPlotter cadence (0 = off; not ported)")
-    p.add_argument("--send-bboxes", default=None, metavar="HOST:PORT", help="not ported")
+    p.add_argument("--plot-image", default=None, help="image rendered by the BBoxPlotter (default: val scene 0)")
+    p.add_argument("--plot-interval", type=int, default=0, help="BBoxPlotter cadence (0 = off; reference: 1)")
+    p.add_argument("--send-bboxes", default=None, metavar="HOST:PORT",
+                   help="stream the BBoxPlotter's canvases to a show_progress viewer")
     p.add_argument("--interactive", action="store_true", help="stdin REPL (shiftlr/setlr/quit/...)")
     p.add_argument("--eval-bn-warmup", type=int, default=0, metavar="N",
                    help="re-estimate BatchNorm stats from N val batches before each in-training eval")
@@ -133,7 +143,7 @@ def get_parser() -> argparse.ArgumentParser:
                    help="multiply LR by FACTOR every EVERY iterations")
     p.add_argument("--dump-graph", action="store_true", help="not ported (a JAX StableHLO dump)")
     p.add_argument("--profile", type=int, nargs=2, default=None, metavar=("START", "STEPS"),
-                   help="not ported (a JAX profiler trace)")
+                   help="write a torch.profiler trace of STEPS iterations from START to <log_dir>/profile")
     p.add_argument("--device", default="cuda",
                    help="torch device to train on (default cuda; under torchrun cuda:LOCAL_RANK)")
     return p
@@ -176,15 +186,15 @@ def _synthetic_n(spec: str, default: int) -> int:
 
 def refusals(args) -> list[str]:
     """Why this run cannot be served by the port (empty when it can)."""
+    from loans_tpu_torch.insights.rendering import pillow_installed
+
     out = []
     if args.dump_graph:
         out.append(REFUSED["dump_graph"])
-    if args.profile:
-        out.append(REFUSED["profile"])
-    if args.plot_interval > 0:
-        out.append(REFUSED["plot_interval"])
-    if args.send_bboxes:
-        out.append(REFUSED["send_bboxes"])
+    if args.plot_interval > 0 and not pillow_installed():
+        out.append(REFUSED["plot_pillow"])
+    if args.plot_interval > 0 and args.supervised:
+        out.append(REFUSED["plot_supervised"])
     return out
 
 
@@ -410,6 +420,36 @@ def _host_batches(args, train_ds, ref_ds):
         yield {"real": ref[0], "labels": ref[1], "unlabeled": unlabeled}
 
 
+def build_hooks(args, val_ds, log_dir: str) -> list:
+    """The BBoxPlotter (``--plot-interval``, at iteration 0 too) and the
+    profiler (``--profile``) as the JAX CLI wires them."""
+    from loans_tpu_torch.train import Hook
+
+    hooks = []
+    if args.plot_interval > 0:
+        from loans_tpu_torch.insights.bbox_plotter import BBoxPlotter
+
+        gt = None
+        if args.plot_image:
+            from loans_tpu_torch.data.datasets import load_image, resize_image
+
+            plot_img = resize_image(load_image(args.plot_image), tuple(args.target_size)) / 255.0
+        else:
+            plot_img, gt_box = val_ds.get_example(0)[:2]
+            gt = np.asarray(gt_box).reshape(-1, 4)
+        send_to = None
+        if args.send_bboxes:
+            host, port = args.send_bboxes.rsplit(":", 1)
+            send_to = (host, int(port))
+        plotter = BBoxPlotter(plot_img, log_dir, gt_bbox=gt, send_to=send_to)
+        hooks.append(Hook(plotter, every=args.plot_interval, at_zero=True, name="bbox_plotter"))
+    if args.profile:
+        from loans_tpu_torch.train.profiling import ProfileHook
+
+        hooks.append(Hook(ProfileHook(log_dir, args.profile[0], args.profile[1]), every=1, name="profiler"))
+    return hooks
+
+
 def main(argv=None) -> str:
     """Train; returns the run's log dir."""
     args = get_parser().parse_args(argv)
@@ -522,6 +562,7 @@ def train(args, device: torch.device) -> str:
         log_interval=args.log_interval,
         eval_fn=eval_fn,
         lr_schedule=lr_schedule,
+        hooks=build_hooks(args, val_ds, log_dir) if main_rank else (),
         control=CommandChannel(log_dir, use_stdin=args.interactive) if main_rank else None,
         keep_snapshots=args.keep_snapshots,
         steps_per_call=steps_per_call,

@@ -22,9 +22,14 @@ json resized as OpenCV resizes) is logged at every ``--eval-interval``.
 ``log`` and ``<SSD300|SSD512>_<iter>.pt`` snapshots, which
 ``inference.SSDInference`` serves and ``cli.evaluate`` sweeps.
 
+``--plot-interval N`` draws the detections and their scores over the gt
+boxes of the first val scene at iteration 0 and every N iterations
+(``SSDPlotHook``, ``<log_dir>/bboxes/<iteration>.png``); the scores are
+drawn with Pillow's font, so without Pillow the flag is refused by name
+(``REFUSED``).
+
 The flags are the JAX CLI's, plus ``--device`` (default ``cuda``;
-``--device cpu`` runs the plain PyTorch crop). What the port lacks is
-refused with the ROADMAP.md item that lifts the refusal (``REFUSED``).
+``--device cpu`` runs the plain PyTorch crop).
 
 Data-parallel over N GPUs as ``cli.train_localizer``:
 ``torchrun --standalone --nproc_per_node=N -m loans_tpu_torch.cli.train_ssd ...``
@@ -41,9 +46,10 @@ import torch
 
 from loans_tpu_torch import parallel
 
-# flag -> why the port refuses it (with the ROADMAP.md item that lifts it)
+# flag -> why the port refuses it
 REFUSED = {
-    "plot_interval": "--plot-interval needs the SSD plot hook and the BBoxPlotter (ROADMAP.md Queue 1 item 13)",
+    "plot_interval": "--plot-interval: the SSD plot hook draws scores with Pillow's font, and Pillow is not "
+                     "installed",
 }
 # the JAX CLI's own message: the device path augments a raw scene pool
 DEVICE_DATA_FILES = "--device-data on requires synthetic train data (raw scene pool); use --device-data off for gt json"
@@ -69,7 +75,8 @@ def get_parser() -> argparse.ArgumentParser:
     p.add_argument("--no-augment", action="store_true")
     p.add_argument("--bf16", action="store_true",
                    help="bfloat16 convolutions (parameters, the optimizer, L2Norm and the crop stay float32)")
-    p.add_argument("--plot-interval", type=int, default=0, help="detection plots (0 = off; not ported)")
+    p.add_argument("--plot-interval", type=int, default=0,
+                   help="draw the detections on the first val scene every N iterations (0 = off)")
     p.add_argument("--num-workers", type=int, default=None, help="host loader threads (--device-data off)")
     p.add_argument("--device-data", choices=["auto", "on", "off"], default="auto",
                    help="keep the scene pool in device memory and augment there (auto: on for synthetic "
@@ -87,9 +94,10 @@ def get_parser() -> argparse.ArgumentParser:
 def refusals(args) -> list[str]:
     """Why this run cannot be served by the port (empty when it can)."""
     from loans_tpu_torch.cli.train_localizer import _is_synthetic
+    from loans_tpu_torch.insights.rendering import pillow_installed
 
     out = []
-    if args.plot_interval > 0:
+    if args.plot_interval > 0 and not pillow_installed():
         out.append(REFUSED["plot_interval"])
     if args.device_data == "on" and not _is_synthetic(args.train_file):
         out.append(DEVICE_DATA_FILES)
@@ -129,6 +137,34 @@ def build_pool(args, size: int) -> dict[str, np.ndarray]:
         "boxes": np.stack([e[1][0] for e in examples])[:, None, :].astype(np.float32),
         "valid": np.ones((len(raw), 1), bool),
     }
+
+
+class SSDPlotHook:
+    """A ``Hook`` fn: the detections and their scores (``evaluator.detect``)
+    drawn over the gt boxes of one fixed image, saved as
+    ``<log_dir>/bboxes/<iteration>.png``."""
+
+    def __init__(self, evaluator, image, gt, log_dir):
+        import os
+
+        self.evaluator = evaluator
+        self.image = np.asarray(image, dtype=np.float32)
+        self.gt = np.asarray(gt, dtype=np.float32).reshape(-1, 4)
+        self.out_dir = os.path.join(log_dir, "bboxes")
+        os.makedirs(self.out_dir, exist_ok=True)
+
+    def __call__(self, trainer, iteration) -> np.ndarray:
+        import os
+
+        from loans_tpu_torch.insights.rendering import draw_boxes_on_image, write_png
+
+        state = trainer.loc_state
+        device = next(state.model.parameters()).device
+        ((boxes, _, scores),) = self.evaluator.detect(state, torch.from_numpy(self.image[None]).to(device))
+        gt = self.gt[np.abs(self.gt).sum(axis=1) > 0]
+        canvas = draw_boxes_on_image((self.image * 255).astype(np.uint8), boxes, gt_boxes=gt, scores=scores)
+        write_png(os.path.join(self.out_dir, f"{iteration}.png"), canvas)
+        return canvas
 
 
 class SyntheticSSDAdapter:
@@ -237,7 +273,7 @@ def train(args, device: torch.device) -> str:
     from loans_tpu_torch.data.ssd_device import SSDPooledBody
     from loans_tpu_torch.evaluation.ssd_eval import SSDEvaluator
     from loans_tpu_torch.inference.localizer import set_precision
-    from loans_tpu_torch.train import Trainer, checkpoint, create_ssd_train_state, pooled_step
+    from loans_tpu_torch.train import Hook, Trainer, checkpoint, create_ssd_train_state, pooled_step
 
     set_precision()
 
@@ -297,6 +333,12 @@ def train(args, device: torch.device) -> str:
         last_eval[0] = bucket
         return evaluator(trainer.loc_state, val_iter())
 
+    hooks = []
+    if args.plot_interval > 0 and main_rank:
+        plot_img, plot_gt = val_ds.get_example(0)[:2]
+        hooks.append(Hook(SSDPlotHook(evaluator, plot_img, plot_gt, log_dir), every=args.plot_interval,
+                          at_zero=True, name="ssd_plotter"))
+
     trainer = Trainer(
         step,
         state,
@@ -309,6 +351,7 @@ def train(args, device: torch.device) -> str:
         snapshot_interval=args.snapshot_interval,
         log_interval=args.log_interval,
         eval_fn=eval_fn,
+        hooks=hooks,
         snapshot_names=(model_name,),
         steps_per_call=steps_per_call,
     )

@@ -28,12 +28,21 @@ import math
 import numpy as np
 
 _PRECISION_BITS = 22  # 32 - 8 - 2, Pillow's for 8-bit images
-_SUPPORT = {"bilinear": 1.0, "lanczos": 3.0}
+_SUPPORT = {"bilinear": 1.0, "bicubic": 2.0, "lanczos": 3.0}
 
 
 def _bilinear(x: float) -> float:
     x = abs(x)
     return 1.0 - x if x < 1.0 else 0.0
+
+
+def _bicubic(x: float, a: float = -0.5) -> float:
+    x = abs(x)
+    if x < 1.0:
+        return ((a + 2.0) * x - (a + 3.0)) * x * x + 1
+    if x < 2.0:
+        return (((x - 5) * x + 8) * x - 4) * a
+    return 0.0
 
 
 def _sinc(x: float) -> float:
@@ -47,7 +56,7 @@ def _lanczos(x: float) -> float:
     return _sinc(x) * _sinc(x / 3.0) if -3.0 <= x < 3.0 else 0.0
 
 
-_FILTERS = {"bilinear": _bilinear, "lanczos": _lanczos}
+_FILTERS = {"bilinear": _bilinear, "bicubic": _bicubic, "lanczos": _lanczos}
 
 
 @functools.lru_cache(maxsize=4096)
@@ -114,9 +123,9 @@ def _unpremultiply(arr: np.ndarray) -> np.ndarray:
 
 
 def resize(arr: np.ndarray, size: tuple[int, int], method: str) -> np.ndarray:
-    """Pillow's ``Image.resize(size, BILINEAR | LANCZOS)`` of an RGB or
-    RGBA uint8 array; ``size`` is (width, height), ``method`` 'bilinear'
-    or 'lanczos'. The same size returns a copy."""
+    """Pillow's ``Image.resize(size, BILINEAR | BICUBIC | LANCZOS)`` of an
+    RGB or RGBA uint8 array; ``size`` is (width, height), ``method``
+    'bilinear', 'bicubic' or 'lanczos'. The same size returns a copy."""
     if method not in _FILTERS:
         raise ValueError(f"unknown resize method: {method!r}")
     size = (int(size[0]), int(size[1]))

@@ -19,8 +19,9 @@ a localizer each pass over the data (scoring, renders, deteval) runs one
 eval-mode forward per batch, each of which crops once (K1's forward kernel
 on the card, or K2's for a ``sampler="rotated_pallas"`` localizer). An SSD
 crops nothing, has no BatchNorm to warm up and, as in the JAX package, no
-deteval export; its renders would draw score text, which needs a font
-the port does not have (``SSD_RENDERS_REFUSED``).
+deteval export; its renders draw every detection with its score, which is
+written with Pillow's font (``insights.rendering.draw_text``): without
+Pillow they are refused by name (``SSD_RENDERS_REFUSED``).
 """
 
 from __future__ import annotations
@@ -39,7 +40,7 @@ from loans_tpu_torch.evaluation.deteval import DetEvalWriter
 from loans_tpu_torch.evaluation.intraining import MAPEvaluator
 from loans_tpu_torch.evaluation.ssd_eval import SSDEvaluator
 from loans_tpu_torch.inference.localizer import set_precision
-from loans_tpu_torch.insights.rendering import draw_boxes_on_image, write_png
+from loans_tpu_torch.insights.rendering import draw_boxes_on_image, pillow_installed, write_png
 from loans_tpu_torch.ops.geometry import Size, corners_to_aabb, theta_corners
 from loans_tpu_torch.train import checkpoint
 from loans_tpu_torch.train.state import create_train_state
@@ -47,8 +48,8 @@ from loans_tpu_torch.train.steps import make_eval_step, to_float01
 from loans_tpu_torch.utils.registry import build_assessor, build_model
 
 SSD_RENDERS_REFUSED = (
-    "--save-predictions on an SSD log dir: the JAX package's SSD renders draw score text with "
-    "Pillow's font, which the port's renders do not have (ROADMAP.md Queue 1 item 13)"
+    "--save-predictions on an SSD log dir: the SSD renders draw each detection's score with Pillow's font, "
+    "and Pillow is not installed"
 )
 
 
@@ -179,10 +180,10 @@ class Evaluator:
         3) float in [0, 1], gt boxes (N, R, 4), ...) numpy batches. With
         ``save_predictions``, renders go to ``<dir>/<iteration>/<i>.png``;
         with ``deteval_dir``, ``deteval_<iteration>.xml`` is written there.
-        An SSD log dir writes no deteval XML and refuses
+        An SSD log dir writes no deteval XML, and without Pillow refuses
         ``save_predictions`` (``SSD_RENDERS_REFUSED``).
         """
-        if save_predictions and self.is_ssd:
+        if save_predictions and self.is_ssd and not pillow_installed():
             raise NotImplementedError(SSD_RENDERS_REFUSED)
         done = self.results.evaluated_snapshots()
         for iteration, path in checkpoint.list_snapshots(self.log_dir, self.snapshot_prefix):
@@ -209,7 +210,9 @@ class Evaluator:
                 entry = {"snapshot_name": name, "iteration": iteration,
                          **{k: float(v) for k, v in metrics.items()}}
                 self.results.append(entry)
-                if save_predictions:
+                if save_predictions and self.is_ssd:
+                    self._render_ssd_predictions(batches_factory(), iteration, save_predictions)
+                elif save_predictions:
                     self._render_predictions(batches_factory(), iteration, save_predictions)
                 if deteval_dir and not self.is_ssd:
                     self._write_deteval(batches_factory(), iteration, deteval_dir)
@@ -244,6 +247,20 @@ class Evaluator:
                 gt_n = gt[n].reshape(-1, 4)
                 gt_n = gt_n[np.abs(gt_n).sum(axis=1) > 0]
                 canvas = draw_boxes_on_image((images[n] * 255).astype(np.uint8), boxes[n : n + 1], gt_boxes=gt_n)
+                write_png(os.path.join(dest, f"{idx}.png"), canvas)
+                idx += 1
+
+    def _render_ssd_predictions(self, batches: Iterable, iteration: int, out_dir: str) -> None:
+        dest = os.path.join(out_dir, str(iteration))
+        os.makedirs(dest, exist_ok=True)
+        idx = 0
+        for batch in batches:
+            images, gt = np.asarray(batch[0]), np.asarray(batch[1])
+            detections = self.map_eval.detect(self.state, torch.as_tensor(images).to(self.device))
+            for (boxes, _, scores), img, gt_n in zip(detections, images, gt):
+                gt_n = gt_n.reshape(-1, 4)
+                gt_n = gt_n[np.abs(gt_n).sum(axis=1) > 0]
+                canvas = draw_boxes_on_image((img * 255).astype(np.uint8), boxes, gt_boxes=gt_n, scores=scores)
                 write_png(os.path.join(dest, f"{idx}.png"), canvas)
                 idx += 1
 

@@ -1,8 +1,9 @@
 """Drawing for prediction renders, in numpy (port of
 ``loans_tpu/insights/rendering.py``, which draws with Pillow).
 
-The machines with the card have no Pillow, so the port draws the same
-pixels itself, as ``data/image_ops.py`` computes Pillow's resizes:
+A machine with the card need not have Pillow, so the port draws the same
+pixels itself, as ``data/image_ops.py`` computes Pillow's resizes, but for
+text:
 
 * ``draw_boxes_on_image`` outlines yxyx boxes as Pillow 12.1.0's
   ``ImageDraw.rectangle(xy, outline=, width=)`` does (``libImaging/Draw.c``,
@@ -16,16 +17,23 @@ pixels itself, as ``data/image_ops.py`` computes Pillow's resizes:
   boxes are not (as in the JAX package).
 * ``write_png`` saves an RGB, gray or RGBA uint8 array as a PNG, on
   ``zlib`` and ``struct``.
+* ``fill_ellipse`` stamps Pillow 12.1.0's ``ImageDraw.ellipse([cx - 3,
+  cy - 3, cx + 3, cy + 3], fill=ink)`` (the BBoxPlotter's PCA dots) as one
+  measured 7x7 mask, clipped to the image.
+* ``draw_text`` writes text with Pillow's default font (in Pillow 12.1.0 a
+  FreeType font, Aileron, anti-aliased), through Pillow itself: numpy
+  cannot draw that font. Pillow is imported when text is drawn; without it
+  text is refused by name (``TEXT_NEEDS_PILLOW``). ``draw_boxes_on_image``
+  with ``scores`` writes each box's score after its outline and before the
+  next box, in the JAX package's order, so a later outline may cover an
+  earlier score.
 
-Images are HWC uint8 numpy arrays. The JAX package's ``scores`` argument,
-text drawn with Pillow's bitmap font, is used only by its SSD renders and
-is not ported: the port has no such font, so the offline sweep refuses
-renders of an SSD log dir (``evaluation.evaluator.SSD_RENDERS_REFUSED``,
-lifted with ROADMAP.md Queue 1 item 13).
+Images are HWC uint8 numpy arrays.
 """
 
 from __future__ import annotations
 
+import importlib.util
 import struct
 import zlib
 
@@ -55,6 +63,18 @@ COLOR_MAP = [
     (128, 128, 128),
 ]
 GT_COLOR = (255, 255, 255)
+TEXT_NEEDS_PILLOW = "text (scores, the BBoxPlotter's caption) is drawn with Pillow's font: Pillow is not installed"
+# ImageDraw.ellipse([cx - 3, cy - 3, cx + 3, cy + 3], fill=...) of Pillow
+# 12.1.0, rows cy - 3 .. cy + 3 by columns cx - 3 .. cx + 3
+_ELLIPSE_7 = np.array([
+    [0, 0, 1, 1, 1, 0, 0],
+    [0, 1, 1, 1, 1, 1, 0],
+    [1, 1, 1, 1, 1, 1, 1],
+    [1, 1, 1, 1, 1, 1, 1],
+    [1, 1, 1, 1, 1, 1, 1],
+    [0, 1, 1, 1, 1, 1, 0],
+    [0, 0, 1, 1, 1, 0, 0],
+], dtype=bool)
 
 
 def to_rgb(image: np.ndarray) -> np.ndarray:
@@ -109,20 +129,54 @@ def draw_rectangle(img: np.ndarray, xy, ink, width: int = 1) -> None:
         _vline(img, x0 + i, y0 + width, y1 - width + 1, ink)
 
 
+def fill_ellipse(img: np.ndarray, cx: int, cy: int, ink) -> None:
+    """Pillow's ``ImageDraw.ellipse([cx - 3, cy - 3, cx + 3, cy + 3],
+    fill=ink)`` on an HW3 uint8 array, in place, for integer centers."""
+    h, w = img.shape[:2]
+    y0, x0 = cy - 3, cx - 3
+    ys, xs = slice(max(y0, 0), min(y0 + 7, h)), slice(max(x0, 0), min(x0 + 7, w))
+    if ys.start >= ys.stop or xs.start >= xs.stop:
+        return
+    mask = _ELLIPSE_7[ys.start - y0 : ys.stop - y0, xs.start - x0 : xs.stop - x0]
+    img[ys, xs][mask] = ink
+
+
+def pillow_installed() -> bool:
+    return importlib.util.find_spec("PIL") is not None
+
+
+def draw_text(img: np.ndarray, xy, text: str, ink) -> None:
+    """Pillow's ``ImageDraw.Draw(image).text(xy, text, fill=ink)`` with its
+    default font on an HW3 uint8 array, in place (through Pillow, imported
+    here; without it ``RuntimeError(TEXT_NEEDS_PILLOW)``)."""
+    try:
+        from PIL import Image, ImageDraw
+    except ImportError:
+        raise RuntimeError(TEXT_NEEDS_PILLOW) from None
+    canvas = Image.fromarray(img)
+    ImageDraw.Draw(canvas).text(xy, text, fill=tuple(ink))
+    img[...] = np.asarray(canvas)
+
+
 def draw_boxes_on_image(
     image: np.ndarray,
     boxes: np.ndarray,
     gt_boxes: np.ndarray | None = None,
+    scores=None,
     width: int = 2,
 ) -> np.ndarray:
     """Draw predicted (colored) and gt (white) yxyx boxes on a copy of an
-    image; returns the HW3 uint8 canvas."""
+    image, with each predicted box's score above it where ``scores`` is
+    given (``draw_text``); returns the HW3 uint8 canvas."""
     img = to_rgb(image)
     boxes = np.asarray(boxes, dtype=np.float64).reshape(-1, 4)
     for i, (y1, x1, y2, x2) in enumerate(boxes):
+        color = COLOR_MAP[i % len(COLOR_MAP)]
         x1, x2 = sorted((float(x1), float(x2)))
         y1, y2 = sorted((float(y1), float(y2)))
-        draw_rectangle(img, [x1, y1, x2, y2], COLOR_MAP[i % len(COLOR_MAP)], width)
+        draw_rectangle(img, [x1, y1, x2, y2], color, width)
+        if scores is not None and i < len(scores):
+            draw_text(img, (x1 + 2, max(y1 - 12, 0)), f"{scores[i]:.2f}", color)
     if gt_boxes is not None:
         for y1, x1, y2, x2 in np.asarray(gt_boxes).reshape(-1, 4):
             draw_rectangle(img, [x1, y1, x2, y2], GT_COLOR, width)

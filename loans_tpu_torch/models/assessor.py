@@ -10,6 +10,10 @@ with the JAX package's ``Dense_0/kernel``; then it scales by
 1/sqrt(fan_in) and applies the sigmoid in float32. Unlike flax's Dense,
 ``nn.Linear`` needs its input width up front, so the assessor is built
 for a crop size ``in_size`` (the localizer's ``out_size``).
+
+``forward(x, features=[])`` appends the pre-head features, the (N, h*w*ch)
+flattened activations that the JAX package sows as ``features/pre_head``
+(the BBoxPlotter's PCA scatter reads them).
 """
 
 from __future__ import annotations
@@ -97,12 +101,14 @@ class ResnetAssessor(nn.Module):
         self.Dense_0 = nn.Linear(self.fan_in, output_dim, bias=False)
         set_dtypes(self, dtype, dtype)
 
-    def forward(self, x):
+    def forward(self, x, features: list | None = None):
         h = self.DownResBlock1_0(x.permute(0, 3, 1, 2))
         h = self.DownResBlock2_0(h)
         h = self.DownResBlock3_0(h)
         h = self.DownResBlock3_1(h)
         h = F.relu(h).permute(0, 2, 3, 1).flatten(1)  # (h, w, c) order
+        if features is not None:
+            features.append(h)
         # as JAX: the fan-in, its root and reciprocal, and the head in the features' dtype
         fan_in = torch.tensor(float(self.fan_in), dtype=h.dtype, device=h.device)
         h = F.linear(h * (1.0 / torch.sqrt(fan_in)), self.Dense_0.weight.to(h.dtype))

@@ -25,6 +25,7 @@ loads JAX's ``Module.init`` at ``jax.random.key(seed)`` (what the JAX CLI's
 
 import json
 import os
+import sys
 
 import jax
 import jax.numpy as jnp
@@ -112,19 +113,26 @@ def test_cli_matches_jax(tmp_path, mode):
     assert np.isfinite(boxes).all() and np.isfinite(scores).all()
 
 
-def test_cli_refuses_what_the_port_lacks(tmp_path):
-    """The JAX-only tooling and the plotter are refused by name before the
-    log dir is made. Image files and ``--device-data off`` are no longer
-    refused (``test_torch_cli_files.py`` runs them): a list file that does
-    not exist fails as a missing file."""
+def test_cli_refuses_what_the_port_lacks(tmp_path, monkeypatch):
+    """``--dump-graph`` (the JAX step's StableHLO) is refused by name before
+    the log dir is made, and so are the plotter with ``--supervised`` (it
+    scores with the assessor) and, without Pillow (its caption's font), the
+    plotter. ``--plot-interval``, ``--plot-image``, ``--send-bboxes`` and
+    ``--profile`` run otherwise (``test_torch_bbox_plotter.py``). Image
+    files and ``--device-data off`` are no longer refused
+    (``test_torch_cli_files.py`` runs them): a list file that does not
+    exist fails as a missing file."""
     for extra, needle in [
         (["--dump-graph"], "StableHLO"),
-        (["--profile", "1", "2"], "profiler"),
-        (["--plot-interval", "1"], "BBoxPlotter"),
-        (["--send-bboxes", "localhost:1"], "BBoxPlotter"),
+        (["--plot-interval", "1", "--supervised"], "BBoxPlotter scores the crop with the assessor"),
     ]:
         with pytest.raises(SystemExit, match=needle):
             cli.main(ARGV + extra + ["--device-data", "off", "--log-dir", str(tmp_path), "--device", "cpu"])
+    with monkeypatch.context() as m:
+        m.setitem(sys.modules, "PIL", None)
+        with pytest.raises(SystemExit, match="BBoxPlotter's caption is drawn with Pillow's font"):
+            cli.main(ARGV + ["--plot-interval", "1", "--send-bboxes", "localhost:1", "--log-dir", str(tmp_path),
+                             "--device", "cpu"])
     assert not os.listdir(tmp_path)  # refused before the log dir is made
     with pytest.raises(FileNotFoundError, match="train.txt"):
         cli.main([str(tmp_path / "train.txt")] + ARGV[1:] + ["--log-dir", str(tmp_path / "run"), "--device", "cpu"])

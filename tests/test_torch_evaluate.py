@@ -19,8 +19,8 @@ flags, and:
   within 1e-5 px of a rounding boundary may print one step apart);
 * resume and ``--force-reset`` evaluate the same snapshots as JAX's;
 * a corrupt snapshot is reported and the sweep goes on; an assessor
-  without snapshots scores nothing; renders of an SSD log dir and a missing
-  card are refused, and a missing gt file fails as one; without matplotlib, ``plot`` still
+  without snapshots scores nothing; renders of an SSD log dir without
+  Pillow and a missing card are refused, and a missing gt file fails as one; without matplotlib, ``plot`` still
   reports the best snapshot;
 * the parser has JAX's flags and defaults, plus ``--device``.
 """
@@ -181,8 +181,11 @@ def test_assessor_without_snapshots_scores_nothing(log_dir, tmp_path):
 def test_refusals(log_dir, tmp_path, monkeypatch):
     ssd = tmp_path / "ssd"
     checkpoint.save_manifest(str(ssd), {"localizer": {"model": "SSD300", "kwargs": {}}})
-    with pytest.raises(SystemExit, match="SSD log dir.*item 13"):  # renders without the score text's font
-        evaluate.main(["synthetic:2", str(ssd), "--save-predictions", str(tmp_path / "renders"), "--device", "cpu"])
+    with monkeypatch.context() as m:  # SSD renders without Pillow, their score text's font
+        m.setitem(sys.modules, "PIL", None)
+        with pytest.raises(SystemExit, match="SSD log dir.*Pillow is not installed"):
+            evaluate.main(["synthetic:2", str(ssd), "--save-predictions", str(tmp_path / "renders"),
+                           "--device", "cpu"])
     with pytest.raises(FileNotFoundError, match="gt.json"):  # files are read now, no longer refused
         evaluate.main([str(tmp_path / "gt.json"), log_dir, "--device", "cpu"])
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)

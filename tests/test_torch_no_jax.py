@@ -17,7 +17,9 @@ files: PNGs written by the port (every row filter) read back by its
 decoder, ``generate_dataset``, the training CLI on an image list, an
 IoU-labeled csv and a labeled csv with the host loader, its log dir swept
 against the csv, the SSD CLI on a gt json with ``--no-augment``, and the
-augmenting SSD transform refused by name without cv2.
+augmenting SSD transform refused by name without cv2; then a frame streamed
+from the progress client to its server, and the BBoxPlotter (its caption's
+font) and the video CLI refused by name without Pillow and cv2.
 It also checks that importing the package never runs ``nvcc`` and that
 the CUDA kernels of both crops refuse CPU tensors. The sources of the port
 and of ``chip_smoke.py``, which runs on the card, name none of them in an
@@ -198,6 +200,39 @@ assert sample_separable_kernel.launches == 0 and not spawned, spawned
 assert not [m for m, v in sys.modules.items()
             if v is not None and m.split(".")[0] in ("jax", "flax", "loans_tpu", "PIL", "cv2", "matplotlib")]
 
+# the progress stream without Pillow: a frame from the port's client to its
+# server, pixel for pixel; the plotter and the video CLI refused by name
+import time
+from loans_tpu_torch.insights.progress_server import ImageClient, ImageServer
+from loans_tpu_torch.cli import video_inference
+server = ImageServer("127.0.0.1", 0).start()
+frame = np.random.default_rng(0).integers(0, 256, (9, 11, 3), dtype=np.uint8)
+assert ImageClient("127.0.0.1", server.port).send(frame, title="no Pillow")
+for _ in range(500):
+    if server.count:
+        break
+    time.sleep(0.01)
+server.stop()
+assert server.count == 1 and np.array_equal(server.latest, frame)
+for argv in (["--plot-interval", "2"], ["--plot-interval", "2", "--send-bboxes", "127.0.0.1:1"]):
+    try:
+        loans_tpu_torch.cli.train_localizer.main(["synthetic:4", "synthetic:4", "synthetic:4", "--device", "cpu",
+                                                  "--log-dir", files] + argv)
+    except SystemExit as e:
+        assert "Pillow is not installed" in str(e), e
+    else:
+        raise AssertionError("the BBoxPlotter ran without Pillow")
+try:
+    video_inference.main([log_dir, "-i", "clip.avi", "--device", "cpu"])
+except SystemExit as e:
+    assert "OpenCV (cv2)" in str(e), e
+else:
+    raise AssertionError("the video CLI ran without cv2")
+assert sample_separable_kernel.launches == 0 and not spawned, spawned
+assert not [m for m, v in sys.modules.items()
+            if v is not None and m.split(".")[0] in ("jax", "flax", "loans_tpu", "PIL", "cv2", "matplotlib",
+                                                    "tkinter")]
+
 import shutil
 shutil.rmtree(out_dir)
 shutil.rmtree(log_dir)
@@ -240,42 +275,54 @@ def _imports(paths, banned, module_level_only=False):
 
 def test_port_sources_import_no_jax():
     """No module of the port, and not ``chip_smoke.py``, names jax, flax or
-    loans_tpu in an import, even inside a function; none imports PIL or
-    cv2 when it is imported. PIL is imported inside a function only by
-    ``data/datasets.py`` (image formats other than PNG, where Pillow is
-    installed)."""
+    loans_tpu in an import, even inside a function; none imports PIL, cv2
+    or tkinter when it is imported. PIL is imported inside a function only
+    by ``data/datasets.py`` (image formats other than PNG, where Pillow is
+    installed), ``insights/rendering.py`` (text in Pillow's font) and
+    ``insights/media.py`` (GIF encoding); tkinter only by
+    ``insights/progress_server.py`` (the viewer's window)."""
     sources = [*PACKAGE.rglob("*.py"), ROOT / "chip_smoke.py"]
     assert not _imports(sources, ("jax", "jaxlib", "flax", "optax", "loans_tpu"))
-    assert not _imports(sources, ("PIL", "cv2"), module_level_only=True)
+    assert not _imports(sources, ("PIL", "cv2", "tkinter"), module_level_only=True)
     pil = {f for f, _ in _imports(sources, ("PIL",))}
-    assert pil <= {"loans_tpu_torch/data/datasets.py"}, pil
+    assert pil <= {"loans_tpu_torch/data/datasets.py", "loans_tpu_torch/insights/rendering.py",
+                   "loans_tpu_torch/insights/media.py"}, pil
+    assert {f for f, _ in _imports(sources, ("tkinter",))} == {"loans_tpu_torch/insights/progress_server.py"}
 
 
 def test_training_cli_path_imports_no_cv2():
     """The training CLIs' path (their data, evaluation, training and model
     modules, and ``chip_smoke.py``) names no cv2 but in
     ``data/augment.py::require_cv2``, which the host augmentations of
-    ``data/augment.py`` and ``data/ssd_augment.py`` call when they run;
-    only the image CLI and the serving helpers that draw or resize frames
-    use it otherwise."""
+    ``data/augment.py`` and ``data/ssd_augment.py`` call when they run, and
+    in the functions of ``chip_smoke.py``'s phase 21 that write and count
+    the video clip (run only where cv2 is installed); only the image, video
+    and live CLIs and the serving helpers that draw or resize frames use it
+    otherwise."""
     paths = [PACKAGE / "cli" / "train_localizer.py", PACKAGE / "cli" / "train_ssd.py", ROOT / "chip_smoke.py"]
     for sub in ("data", "evaluation", "train", "models", "ops"):
         paths += list((PACKAGE / sub).rglob("*.py"))
-    assert _imports(paths, ("cv2",)) == [("loans_tpu_torch/data/augment.py", "cv2")]
+    assert sorted(set(_imports(paths, ("cv2",)))) == [("chip_smoke.py", "cv2"), ("loans_tpu_torch/data/augment.py", "cv2")]
     assert not _imports(paths, ("cv2",), module_level_only=True)
 
 
 def test_evaluation_path_imports_no_cv2_or_matplotlib():
     """The evaluation CLI's and the bench's path (the loader, deteval, the
-    sweep, VisualBackprop and the renders) and ``chip_smoke.py`` name
-    neither cv2 nor matplotlib in an import (``Evaluator.plot`` loads
-    matplotlib by name where it is installed), nor jax, flax, loans_tpu or
-    PIL."""
+    sweep, VisualBackprop, the renders, the BBoxPlotter and the progress
+    stream) and ``chip_smoke.py`` name neither cv2 nor matplotlib in an
+    import (``Evaluator.plot`` loads matplotlib by name where it is
+    installed), nor jax, flax or loans_tpu; but ``insights/media.py``, whose
+    ``make_video`` writes with cv2 when it runs. PIL only inside
+    ``insights/rendering.py::draw_text`` (score text) and the GIF encoder
+    of ``insights/media.py``."""
     paths = [PACKAGE / "cli" / "evaluate.py", PACKAGE / "bench.py", PACKAGE / "data" / "loader.py",
              ROOT / "chip_smoke.py"]
     for sub in ("evaluation", "insights", "models"):
         paths += list((PACKAGE / sub).rglob("*.py"))
-    assert not _imports(paths, ("cv2", "matplotlib", "jax", "jaxlib", "flax", "optax", "loans_tpu", "PIL"))
+    assert not _imports(paths, ("matplotlib", "jax", "jaxlib", "flax", "optax", "loans_tpu"))
+    assert sorted(set(_imports(paths, ("cv2",)))) == [("chip_smoke.py", "cv2"), ("loans_tpu_torch/insights/media.py", "cv2")]
+    assert sorted(_imports(paths, ("PIL",))) == [("loans_tpu_torch/insights/media.py", "PIL"),
+                                                ("loans_tpu_torch/insights/rendering.py", "PIL")]
 
 
 PARALLEL_SCRIPT = r"""

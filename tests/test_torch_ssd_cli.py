@@ -27,16 +27,23 @@ branch (``evaluation/ssd_eval.py``, ``evaluation/evaluator.py``,
   networks, measured 2e-5 px), the same boxes kept (the JAX package's
   native NMS in float32, the port's in float64: no IoU in these images
   falls within rounding of 0.45), and mAP to 1e-6.
+* The plot hook (``SSDPlotHook``) and the sweep's ``--save-predictions``
+  renders against JAX's, and the live CLI on the SSD log dir against JAX's
+  live CLI: the detections as above, the drawings equal but where a box or
+  a score moves by a pixel.
 """
 
 import json
 import os
+import sys
+from types import SimpleNamespace
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from PIL import Image
 
 from test_torch_ssd_models import port_ssd, ssd_variables  # noqa: E402
 
@@ -53,10 +60,12 @@ from loans_tpu.train import state as jstate
 from loans_tpu_torch import bridge
 from loans_tpu_torch.cli import evaluate
 from loans_tpu_torch.cli import train_ssd as cli
+from loans_tpu_torch.data.png import read_png
 from loans_tpu_torch.data.synthetic import SyntheticLocalizerDataset
 from loans_tpu_torch.evaluation.evaluator import Evaluator
 from loans_tpu_torch.evaluation.ssd_eval import SSDEvaluator
 from loans_tpu_torch.inference import LocalizerInference, SSDInference, load_inference
+from loans_tpu_torch.insights.rendering import draw_boxes_on_image
 from loans_tpu_torch.models import Localizer
 from loans_tpu_torch.ops import Size
 from loans_tpu_torch.train import MetricsLog, checkpoint
@@ -108,12 +117,14 @@ def test_cli_matches_jax(tmp_path, monkeypatch, variables):
     monkeypatch.setattr(jtrain, "make_pooled_train_step", stepwise_pooled_train_step)
     monkeypatch.setattr(cli, "build_model", lambda args, device: port_ssd("SSD300", variables).to(device))
     jdir = jcli.main(ARGV + ["--log-dir", str(tmp_path / "jax")])
-    pdir = cli.main(ARGV + ["--log-dir", str(tmp_path / "port"), "--device", "cpu"])
+    # the port's run with the plot hook: iterations 0 and 2 drawn, the losses as JAX's without it
+    pdir = cli.main(ARGV + ["--log-dir", str(tmp_path / "port"), "--device", "cpu", "--plot-interval", "2"])
 
     jman, pman = checkpoint.load_manifest(jdir), checkpoint.load_manifest(pdir)
     for man in (jman, pman):
         man["config"].pop("log_dir")
     assert pman["config"].pop("device") == "cpu"
+    assert pman["config"].pop("plot_interval") == 2 and jman["config"].pop("plot_interval") == 0
     assert json.loads(json.dumps(jman)) == pman
 
     jlog, plog = MetricsLog.read(jdir), MetricsLog.read(pdir)
@@ -122,7 +133,9 @@ def test_cli_matches_jax(tmp_path, monkeypatch, variables):
     for k in ("loss", "loss/loc", "loss/conf"):
         np.testing.assert_allclose(plog[0][k], jlog[0][k], rtol=1e-3, err_msg=k)
 
-    assert {"manifest.json", "log", "SSD300_2.pt"} <= set(os.listdir(pdir))
+    assert {"manifest.json", "log", "SSD300_2.pt", "bboxes"} <= set(os.listdir(pdir))
+    assert sorted(os.listdir(os.path.join(pdir, "bboxes"))) == ["0.png", "2.png"]
+    assert read_png(os.path.join(pdir, "bboxes", "0.png")).shape == (300, 300, 3)
     port = checkpoint.load_params(os.path.join(pdir, "SSD300_2.pt"))
     jax_params, _ = jcheckpoint.restore_params(os.path.join(jdir, "SSD300_2.msgpack"), variables["params"])
     want = bridge.ssd_state_dict(port_ssd("SSD300", variables), jax.tree_util.tree_map(np.asarray, jax_params))
@@ -133,17 +146,18 @@ def test_cli_matches_jax(tmp_path, monkeypatch, variables):
             assert not torch.equal(value, start[key]), key
 
 
-def test_cli_refuses_what_the_port_lacks(tmp_path):
-    """The plot hook is refused by name (item 13), and a gt json with
-    ``--device-data on`` with the JAX CLI's message, before the log dir is
-    made. Gt json files, ``--device-data off`` and ``--num-workers`` are no
-    longer refused (``test_torch_cli_files.py`` runs them)."""
-    for argv, needle in [
-        (ARGV + ["--plot-interval", "10"], "item 13"),
-        (["train.json"] + ARGV[1:] + ["--device-data", "on"], "requires synthetic train data"),
-    ]:
-        with pytest.raises(SystemExit, match=needle):
-            cli.main(argv + ["--log-dir", str(tmp_path), "--device", "cpu"])
+def test_cli_refuses_what_the_port_lacks(tmp_path, monkeypatch):
+    """A gt json with ``--device-data on`` is refused with the JAX CLI's
+    message, and the plot hook without Pillow (its scores are drawn with
+    Pillow's font) by name, before the log dir is made. With Pillow the
+    plot hook runs (``test_plot_hook_matches_jax``); gt json files,
+    ``--device-data off`` and ``--num-workers`` are no longer refused
+    (``test_torch_cli_files.py`` runs them)."""
+    with pytest.raises(SystemExit, match="requires synthetic train data"):
+        cli.main(["train.json"] + ARGV[1:] + ["--device-data", "on", "--log-dir", str(tmp_path), "--device", "cpu"])
+    monkeypatch.setitem(sys.modules, "PIL", None)
+    with pytest.raises(SystemExit, match="plot hook draws scores with Pillow's font, and Pillow is not installed"):
+        cli.main(ARGV + ["--plot-interval", "10", "--log-dir", str(tmp_path), "--device", "cpu"])
     assert not os.listdir(tmp_path)  # refused before the log dir is made
 
 
@@ -241,24 +255,49 @@ def test_inference_and_dispatch_match_jax(ssd_log_dir, tmp_path):
     assert isinstance(load_inference(loc_dir, device="cpu"), LocalizerInference)
 
 
-def test_sweep_matches_jax_and_resumes(ssd_log_dir, capsys):
+def assert_renders_match(got, want, base):
+    """A port render against JAX's of the same image: any difference lies
+    on a pixel that one of them drew over ``base`` (a detection's box moved
+    by one pixel where a coordinate truncates to either side, or its score
+    printed one step apart); returns whether they are equal."""
+    off = (got != want).any(axis=-1)
+    on_drawing = (got != base).any(axis=-1) | (want != base).any(axis=-1)
+    assert not (off & ~on_drawing).any(), "a difference off the drawn detections"
+    return not off.any()
+
+
+def test_sweep_matches_jax_and_resumes(ssd_log_dir, tmp_path, capsys, monkeypatch):
     """The SSD branch of the sweep: the ``SSD300_`` prefix by default, mAP
     per snapshot as the JAX package's ``Evaluator`` gives it, no deteval,
-    no BatchNorm warm-up; a second run evaluates nothing; renders are
-    refused by name."""
+    no BatchNorm warm-up; the renders of ``--save-predictions`` (the
+    detections with their scores over the gt boxes) equal JAX's where the
+    detections agree (``assert_renders_match``); a second run evaluates
+    nothing; without Pillow the renders are refused by name."""
     batches = val_batches()
     jev = jevaluator.Evaluator(ssd_log_dir, results_name="eval_jax.json")
-    jresults = jev.sweep(lambda: iter([(jnp.asarray(b[0]), b[1]) for b in batches]), deteval_dir="unused")
+    jresults = jev.sweep(lambda: iter([(jnp.asarray(b[0]), b[1]) for b in batches]), deteval_dir="unused",
+                         save_predictions=str(tmp_path / "jax"))
     ev = Evaluator(ssd_log_dir, results_name="eval_port.json", device="cpu")
     assert ev.is_ssd and ev.snapshot_prefix == "SSD300_" and ev.image_size == Size(300, 300)
-    results = ev.sweep(lambda: iter(batches), deteval_dir=str(ssd_log_dir) + "/deteval", bn_warmup=1)
+    results = ev.sweep(lambda: iter(batches), deteval_dir=str(ssd_log_dir) + "/deteval", bn_warmup=1,
+                       save_predictions=str(tmp_path / "port"))
     assert [e["snapshot_name"] for e in results.entries] == ["SSD300_1.pt", "SSD300_2.pt"]
     for got, want in zip(results.entries, jresults.entries):
         assert set(got) == set(want) == {"snapshot_name", "iteration", "map"}
         assert got["iteration"] == want["iteration"] and abs(got["map"] - want["map"]) <= 1e-6
     assert not os.path.exists(str(ssd_log_dir) + "/deteval")
-    with pytest.raises(NotImplementedError, match="item 13"):
-        ev.sweep(lambda: iter(batches), save_predictions=str(ssd_log_dir) + "/renders")
+    equal = 0
+    for it in ("1", "2"):
+        names = sorted(os.listdir(tmp_path / "port" / it))
+        assert names == sorted(os.listdir(tmp_path / "jax" / it)) == ["0.png", "1.png", "2.png", "3.png"]
+        for i, name in enumerate(names):
+            img, gt = batches[i // 2][0][i % 2], batches[i // 2][1][i % 2]
+            base = draw_boxes_on_image((img * 255).astype(np.uint8), np.zeros((0, 4)), gt_boxes=gt[np.abs(gt).sum(1) > 0])
+            got = read_png(str(tmp_path / "port" / it / name))
+            want = np.asarray(Image.open(tmp_path / "jax" / it / name))
+            equal += assert_renders_match(got, want, base)
+            assert (got != base).any()  # detections drawn
+    assert equal >= 6  # of 8 renders
 
     argv = ["synthetic:4", ssd_log_dir, "-b", "2", "--seed", "1", "--device", "cpu"]
     first = evaluate.main(argv)
@@ -267,8 +306,118 @@ def test_sweep_matches_jax_and_resumes(ssd_log_dir, capsys):
     assert maps == {e["snapshot_name"]: e["map"] for e in results.entries}  # the same scenes
     assert not evaluate.main(argv).timings  # resume
     assert "best snapshot: SSD300_" in capsys.readouterr().out
-    with pytest.raises(SystemExit, match="item 13"):
+    monkeypatch.setitem(sys.modules, "PIL", None)
+    with pytest.raises(SystemExit, match="SSD log dir.*Pillow is not installed"):
         evaluate.main(argv + ["--save-predictions", str(ssd_log_dir) + "/renders"])
+    with pytest.raises(NotImplementedError, match="Pillow is not installed"):
+        ev.sweep(lambda: iter(batches), save_predictions=str(ssd_log_dir) + "/renders")
+
+
+def test_plot_hook_matches_jax(variables, tmp_path):
+    """``SSDPlotHook`` at iteration 0 against JAX's from the same weights
+    on the first val scene: the detections within 1e-3 px and 1e-5 as
+    ``test_detections_and_map_match_jax`` holds them, and the PNG equal,
+    but where a box or score moves by a pixel (``assert_renders_match``).
+    ``test_cli_matches_jax`` runs the hook in the CLI."""
+    image, gt = val_batches(2, 2)[0][0][0], val_batches(2, 2)[0][1][0]
+    jmodel = jssd.SSD300()
+    jev = JSSDEvaluator(jmodel, jmodel.coder())
+    jstate_ = jstate.TrainState(step=jnp.zeros((), jnp.int32), params=variables["params"], batch_stats={},
+                                opt_state=None, tx=None)
+    jcli.SSDPlotHook(jev, image, gt, str(tmp_path / "jax"))(SimpleNamespace(loc_state=jstate_), 0)
+    ev = SSDEvaluator(300, port_ssd("SSD300", variables).coder())
+    state = checkpoint_state(variables)
+    got = cli.SSDPlotHook(ev, image, gt, str(tmp_path / "port"))(SimpleNamespace(loc_state=state), 0)
+    assert np.array_equal(read_png(str(tmp_path / "port" / "bboxes" / "0.png")), got)
+    want = np.asarray(Image.open(tmp_path / "jax" / "bboxes" / "0.png"))
+    ((pb, _, ps),) = ev.detect(state, torch.from_numpy(image[None]))
+    ((jb, _, js),) = jev.detect(jstate_, jnp.asarray(image[None]))
+    assert len(pb) == len(jb) > 0
+    np.testing.assert_allclose(pb, jb, rtol=0, atol=1e-3)
+    np.testing.assert_allclose(ps, js, rtol=0, atol=1e-5)
+    assert got.shape == want.shape == (300, 300, 3)
+    base = draw_boxes_on_image((image * 255).astype(np.uint8), np.zeros((0, 4)), gt_boxes=gt[np.abs(gt).sum(1) > 0])
+    print(f"plot hook render equal to JAX's: {assert_renders_match(got, want, base)}")
+
+
+def lockstep(results):
+    """A stand-in for ``AsynchronousLocalizer`` that localizes each frame
+    when it is submitted and hands its result to the next ``get_result``,
+    with its fps at 0: the live CLI then shows the same frames in every
+    run. Each result is appended to ``results``."""
+
+    class Lockstep:
+        def __init__(self, localizer):
+            self.localizer, self.fps, self.result = localizer, 0.0, None
+
+        def start_localization_worker(self):
+            return self
+
+        def submit(self, image):
+            self.result = self.localizer.localize(image)
+            results.append(self.result)
+            return True
+
+        def get_result(self):
+            result, self.result = self.result, None
+            return result
+
+        def shutdown(self):
+            pass
+
+    return Lockstep
+
+
+def test_live_cli_serves_an_ssd_log_dir(ssd_log_dir, tmp_path, monkeypatch):
+    """The live CLI on an SSD log dir serves through ``SSDInference``, as
+    the JAX package's does: three frames of a clip (two scenes at 400x300
+    and one again), then ESC. With the worker in lock step in both CLIs,
+    each frame's detections (several a frame) agree with JAX's to 1e-3 px
+    and 1e-5, and each shown frame (mirrored, the boxes and scores drawn
+    at the frame's scale, the fps text) equals JAX's but where a box or
+    score moves by a pixel (``assert_renders_match``)."""
+    import cv2
+
+    import loans_tpu.inference as jax_inference
+    import loans_tpu_torch.inference as port_inference
+    from loans_tpu.cli import live_inference as jlive
+    from loans_tpu_torch.cli import live_inference
+
+    scenes = [img for images, _, _ in val_batches(2, 2) for img in images]
+    frames = [cv2.resize((img[..., ::-1] * 255).astype(np.uint8), (400, 300)) for img in scenes + scenes[:1]]
+    clip = str(tmp_path / "live.avi")
+    writer = cv2.VideoWriter(clip, cv2.VideoWriter_fourcc(*"MJPG"), 10.0, (400, 300))
+    for f in frames:
+        writer.write(f)
+    writer.release()
+    cap, decoded = cv2.VideoCapture(clip), []
+    while (read := cap.read())[0]:
+        decoded.append(read[1])
+    cap.release()
+
+    def shown_by(cli, package, argv):
+        results, shown, keys = [], [], iter([255, 255, 27])
+        monkeypatch.setattr(package, "AsynchronousLocalizer", lockstep(results))
+        monkeypatch.setattr(cv2, "imshow", lambda name, frame: shown.append(frame.copy()))
+        monkeypatch.setattr(cv2, "waitKey", lambda delay: next(keys))
+        monkeypatch.setattr(cv2, "destroyAllWindows", lambda: None)
+        cli.main(argv)
+        return results, shown
+
+    argv = [ssd_log_dir, "-c", clip, "--score-threshold", "0.6"]
+    monkeypatch.setattr(jlive, "get_parser", live_inference.get_parser)  # JAX's takes a device index only
+    jresults, jshown = shown_by(jlive, jax_inference, argv)
+    results, shown = shown_by(live_inference, port_inference, argv + ["--device", "cpu"])
+    assert len(results) == len(jresults) == len(shown) == len(jshown) == 3
+    for (pb, rois, ps, heat), (jb, _, js, _) in zip(results, jresults):
+        assert rois is None and heat is None and len(pb) == len(jb) > 1
+        np.testing.assert_allclose(pb, jb, rtol=0, atol=1e-3)
+        np.testing.assert_allclose(ps, js, rtol=0, atol=1e-5)
+    for got, want, frame in zip(shown, jshown, decoded):
+        base = cv2.flip(frame, 1)
+        cv2.putText(base, "0.0 fps", (10, 24), cv2.FONT_HERSHEY_SIMPLEX, 0.7, (0, 255, 0), 2)
+        assert got.shape == (300, 400, 3) and (got != base).any()  # detections drawn
+        assert_renders_match(got, want, base)
 
 
 def test_image_cli_serves_an_ssd_log_dir(ssd_log_dir, tmp_path, capsys):
