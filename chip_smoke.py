@@ -143,7 +143,21 @@ Phases, one line or more each; any failure exits non-zero:
    alike, K1 once more a plot, the trace naming K1's kernel, the last canvas
    against the CPU's; (e) the SSD CLI with its plot hook and the sweep's SSD
    renders. Without cv2 the video and live CLIs' refusals are checked
-   instead.
+   instead;
+22. the offline tools: (a) ``python -m loans_tpu_torch.cli.supervise`` over
+   this script's ``--cli`` mode at phase 10's configuration for 48
+   iterations (no refresh, a snapshot every 16); the first attempt's
+   process group is killed with SIGKILL after its first snapshots, the
+   supervisor relaunches it with both ``--resume-*`` flags at the ``_16.pt``
+   files, and the resumed run logs from 24 and ends at 48 (rc 0): each
+   attempt's K1 launches, the seconds from the kill to the resumed run's
+   first log entry; (b) the dataset tools: ``average_snapshots
+   --out-iteration 64`` in a copy of the resumed log dir, swept on the card
+   with ``--bn-warmup`` (SWA's mAP beside the last snapshot's),
+   ``convert_snapshot``'s model-only files served through
+   ``LocalizerInference`` with boxes equal to the training snapshots' bit
+   for bit, ``extract_frames --resize 224`` and ``blend_videos`` on phase
+   21's clip (frames/s), or without cv2 their refusals.
 
 The line before the last is a JSON object of the six kernels: launches in
 phase 10, the CLI (K1), and phase 8 (K2), with the launches of every path
@@ -152,7 +166,8 @@ driven (``launches_by_path``; phases 16 and 18 as ``train_ssd``,
 ``evaluate_files`` and ``train_ssd_files``, phase 20 as ``train_ddp`` (the two
 ranks over gloo, summed) and ``train_cli_torchrun``, phase 21 as
 ``serve_video`` (b8_pipelined; K2: ``serve_video_rotated``), ``serve_live``,
-``train_cli_plot`` and ``train_ssd_plot``), errors from phases 2, 2b, 7, 15 and 21,
+``train_cli_plot`` and ``train_ssd_plot``, phase 22 as ``train_cli_supervised``
+(both attempts, summed) and ``evaluate_swa``), errors from phases 2, 2b, 7, 15 and 21,
 K1's forward's times at phase 15's shapes (``ssd_shapes``) and phase 21's
 (``serving_shapes``), times and
 bounds at the training batch: ``ms`` per call (CUDA events, host launch
@@ -172,6 +187,7 @@ import importlib.util
 import io
 import json
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -3001,16 +3017,248 @@ def phase21(card: str, work: str, cli_log_dir: str, rotated_dir: str, ssd_log_di
     return out
 
 
+# -- phase 22 ---------------------------------------------------------------
+# the offline tools on phase 10's configuration (R-50 224->75, the assessor
+# at ch 128, float32, batch 64), without the pool refresh. (a) The
+# supervisor (python -m loans_tpu_torch.cli.supervise) runs this script's
+# --cli mode for 48 iterations with a snapshot every 16; once the first
+# attempt has written both _16 snapshots, its process group is killed with
+# SIGKILL (an OOM kill or a lost card), and the supervisor must relaunch it
+# with both --resume-* flags at those files; the resumed run logs from 24 on
+# and ends at 48. Each attempt's launches are its own process's: the killed
+# one's as its --cli mode recorded them at its _16 snapshot. The stall
+# timeout stays above the CLI's start-up (its clock starts at launch); the
+# stall path is held on the CPU (tests/test_torch_supervise.py). (b) The
+# dataset tools on (a)'s resumed log dir: average_snapshots --out-iteration
+# 64 (SWA of 32 and 48) in a copy, swept on the card with --bn-warmup
+# (phase 12's sweep: 3 snapshots x 2 batches x 3 passes of K1's forward);
+# convert_snapshot of the last training snapshots served through
+# LocalizerInference with boxes, rois and scores equal bit for bit to the
+# training snapshots'; extract_frames --resize 224 and blend_videos (the
+# clip and phase 21's served b8 video) on phase 21's clip, or without cv2
+# their refusals.
+SUPERVISED_ITERATIONS, SUPERVISED_SNAPSHOT = 48, 16
+SUPERVISED_ARGV = CLI_ARGV + ["--iterations", str(SUPERVISED_ITERATIONS), "--snapshot-interval",
+                              str(SUPERVISED_SNAPSHOT), "--assessor-refresh", "0"]
+SUPERVISE_FLAGS = ["--stall-timeout", "300", "--poll-interval", "0.5", "--max-restarts", "2"]
+SUPERVISED_TIMEOUT_S = 600
+
+
+def cli_launches(argv: list[str], start: int, end: int) -> dict:
+    """K1's launches of the CLI's run from iteration ``start`` to ``end``
+    (phase 20's accounting, without the refresh): a forward and a d theta a
+    step, a forward an eval batch of each log entry, a forward per render
+    batch of the reference crops at start-up."""
+    args = train_localizer.get_parser().parse_args(argv)
+    renders = -(-train_localizer._synthetic_n(args.reference_file, 1024) // synthetic.RENDER_BATCH)
+    steps, evals = end - start, (end - start) // args.log_interval * args.eval_batches
+    return {"K1": {"fwd": steps + evals + renders, "bwd_theta": steps, "bwd_images": 0}, "K2": NO_LAUNCHES}
+
+
+def _wait_for(what: str, cond, proc: subprocess.Popen, timeout_s: float, poll_s: float = 0.05):
+    deadline = time.perf_counter() + timeout_s
+    while True:
+        found = cond()
+        if found:
+            return found
+        check(proc.poll() is None, f"{what}: the supervisor exited {proc.returncode} first")
+        check(time.perf_counter() < deadline, f"{what}: not within {timeout_s} s")
+        time.sleep(poll_s)
+
+
+def supervised_phase(card: str, work: str) -> dict:
+    """Phase 22 (a): the training CLI under the supervisor, killed after its
+    first snapshot and resumed. Returns the resumed log dir and the
+    launches of both attempts."""
+    import glob
+    import signal
+
+    from loans_tpu_torch.cli import supervise
+
+    out, base = f"{work}/supervised", f"{work}/supervised_logs"
+    cmd = [sys.executable, "-m", "loans_tpu_torch.cli.supervise", *SUPERVISE_FLAGS, "--", sys.executable,
+           os.path.abspath(__file__), "--cli", out, *SUPERVISED_ARGV, "--log-dir", base]
+    snap = SUPERVISED_SNAPSHOT
+    start = time.perf_counter()
+    with open(f"{work}/supervise.log", "w") as log:
+        sup = subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT, cwd=os.path.dirname(os.path.abspath(__file__)))
+        try:
+            first = _wait_for(f"supervised: {snap} snapshots", lambda: [
+                d for d in glob.glob(f"{base}/*") if os.path.exists(f"{d}/Localizer_{snap}.pt")
+                and os.path.exists(f"{d}/ResnetAssessor_{snap}.pt") and os.path.exists(f"{out}.0.at{snap}.json")],
+                sup, SUPERVISED_TIMEOUT_S)[0]
+            at_snapshot_s = time.perf_counter() - start
+            check(not glob.glob(f"{first}/*_{2 * snap}.pt"), f"supervised: attempt 0 passed {2 * snap} first")
+            pgid = json.load(open(f"{out}.0.at{snap}.json"))["pgid"]
+            check(pgid not in (os.getpgrp(), sup.pid), f"supervised: the child's process group {pgid}")
+            os.killpg(pgid, signal.SIGKILL)  # the child leads a session (and process group) of its own
+            killed = time.perf_counter()
+            resumed = _wait_for("supervised: the resumed run's first log entry", lambda: [
+                d for d in glob.glob(f"{base}/*") if d != first and os.path.exists(f"{d}/log")], sup,
+                SUPERVISED_TIMEOUT_S)[0]
+            to_first_entry_s = time.perf_counter() - killed
+            rc = sup.wait(timeout=SUPERVISED_TIMEOUT_S)
+        finally:
+            if sup.poll() is None:
+                sup.kill()
+                sup.wait()
+    wall_s = time.perf_counter() - start
+    printed = [line for line in open(f"{work}/supervise.log").read().splitlines() if line.startswith("[supervise]")]
+    for line in printed:
+        print(f"supervised: {line}")
+    check(rc == 0, f"supervised: the supervisor exited {rc}")
+    attempts = [line for line in printed if " attempt " in line]
+    flags = (f"--resume-localizer {first}/Localizer_{snap}.pt --resume-discriminator "
+             f"{first}/ResnetAssessor_{snap}.pt --no-freeze")
+    check(len(attempts) == 2 and attempts[1].endswith(flags), f"supervised: the attempts {attempts}")
+    check("[supervise] child exited rc=-9" in printed, "supervised: the kill is not reported")
+    record = json.load(open(f"{out}.0.json"))
+    check(record["log_dir"] == resumed, f"supervised: the resumed run wrote {record['log_dir']}, not {resumed}")
+    log = MetricsLog.read(resumed)
+    its = [int(e["iteration"]) for e in log]
+    check(its[0] > snap and its[-1] == SUPERVISED_ITERATIONS and rc == 0, f"supervised: resumed log at {its}")
+    check(all(np.isfinite(e[k]) for e in log for k in ("loss_localizer", "loss_dis", "mean_iou", "map")),
+          "supervised: finite losses")
+    check(os.path.exists(f"{resumed}/Localizer_{SUPERVISED_ITERATIONS}.pt"), "supervised: the last snapshot")
+    launches = [json.load(open(f"{out}.0.at{snap}.json"))["launches"], record["launches"]]
+    want = [cli_launches(SUPERVISED_ARGV, 0, snap), cli_launches(SUPERVISED_ARGV, snap, SUPERVISED_ITERATIONS)]
+    for i, (got, expected) in enumerate(zip(launches, want)):
+        check(got == expected, f"supervised: attempt {i} launches {got} != {expected}")
+    rates = [e["images_per_sec"] for e in log[1:]]
+    print(f"supervised: attempt 0 killed (SIGKILL to its process group) {at_snapshot_s:.1f} s after the "
+          f"supervisor's start, at its iteration-{snap} snapshots; attempt 1 resumed from them, logged iterations "
+          f"{its}, rc 0; {to_first_entry_s:.1f} s from the kill to the resumed run's first log entry (the "
+          f"supervisor's poll, its {supervise.RESTART_PAUSE_S:g} s pause, a process start, data, "
+          f"{STEPS_PER_CALL} steps and an eval); "
+          f"resumed images/s per log entry after the first {', '.join(f'{r:.1f}' for r in rates)}; "
+          f"{wall_s:.1f} s in all ({card})")
+    print(f"supervised: K1 launches, attempt 0 at its snapshot {launches[0]['K1']}, attempt 1 {launches[1]['K1']} "
+          f"(a forward and a d theta a step, a forward an eval batch, a forward a render batch of the reference "
+          f"crops at each start-up)")
+    total = {k: launches[0]["K1"][k] + launches[1]["K1"][k] for k in COUNTERS}
+    return {"log_dir": resumed, "launches": total}
+
+
+def tools_phase(card: str, work: str, log_dir: str) -> int:
+    """Phase 22 (b): the dataset tools on the supervised run's log dir and
+    phase 21's clip. Returns the SWA sweep's K1 launches."""
+    from loans_tpu_torch.cli import dataset_tools
+
+    last = SUPERVISED_ITERATIONS
+    swa_dir = f"{work}/swa"
+    os.makedirs(swa_dir)
+    for name in os.listdir(log_dir):  # a copy of the log dir: its files linked
+        os.symlink(os.path.join(log_dir, name), os.path.join(swa_dir, name))
+    start = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()) as said:
+        dataset_tools.main(["average_snapshots", swa_dir, "--out-iteration", str(last + SUPERVISED_SNAPSHOT)])
+    print(f"swa: {said.getvalue().strip()} in {time.perf_counter() - start:.2f} s")
+    swa = f"Localizer_{last + SUPERVISED_SNAPSHOT}.pt"
+    sweep = sweep_on_card("evaluate swa", swa_dir, f"{work}/swa_eval", "K1", card)
+    scores = {e["snapshot_name"]: e for e in sweep["results"].entries}
+    check(swa in scores, f"swa: {swa} not scored")
+    print(f"swa: {swa} (SWA of iterations {SUPERVISED_SNAPSHOT * 2}..{last}) map {scores[swa]['map']:.4f} mean_iou "
+          f"{scores[swa]['mean_iou']:.4f} beside the last real snapshot Localizer_{last}.pt map "
+          f"{scores[f'Localizer_{last}.pt']['map']:.4f} mean_iou {scores[f'Localizer_{last}.pt']['mean_iou']:.4f} "
+          f"(--bn-warmup 1 re-estimates the statistics; K1 forward launches {sweep['launches']}) ({card})")
+
+    conv_dir = f"{work}/converted"
+    os.makedirs(conv_dir)
+    shutil.copy(f"{log_dir}/manifest.json", conv_dir)
+    for name in ("Localizer", "ResnetAssessor"):
+        with contextlib.redirect_stdout(io.StringIO()):
+            dataset_tools.main(["convert_snapshot", f"{log_dir}/{name}_{last}.pt", f"{conv_dir}/{name}_{last}.pt"])
+    sizes = [os.path.getsize(f"{d}/Localizer_{last}.pt") / 2**20 for d in (log_dir, conv_dir)]
+    args = train_localizer.get_parser().parse_args(SUPERVISED_ARGV)
+    val = synthetic.SyntheticLocalizerDataset(
+        BATCH, image_size=tuple(args.target_size), seed=args.seed + 2, labeled=True, output_dtype="uint8",
+        **train_localizer.build_asset_kw(args))
+    frames = np.stack([val.items[i][0] for i in range(len(val))]).astype(np.float32) / 255.0
+    served = []
+    reset_launches()
+    with deterministic_cudnn():
+        for d in (log_dir, conv_dir):
+            inf = LocalizerInference(d, snapshot=f"Localizer_{last}.pt", device=DEVICE, use_assessor=True,
+                                     score_threshold=0.0)
+            served.append(inf.localize_batch(frames)[:3])
+    launches = read_launches()
+    check(launches == {"K1": {**NO_LAUNCHES, "fwd": 2}, "K2": NO_LAUNCHES}, f"converted: launches {launches}")
+    equal = [np.array_equal(a, b) for a, b in zip(*served)]
+    check(all(equal) and np.isfinite(served[0][0]).all(), f"converted: boxes, rois, scores equal {equal}")
+    print(f"converted: convert_snapshot of Localizer_{last}.pt ({sizes[0]:.1f} MiB with the optimizer -> "
+          f"{sizes[1]:.1f} MiB) and ResnetAssessor_{last}.pt served through LocalizerInference on {DEVICE}: "
+          f"{BATCH} val frames, boxes, rois and scores equal to the training snapshots' bit for bit; "
+          f"K1 launches {launches['K1']['fwd']} (one a batch)")
+
+    clip = f"{work}/clip.mp4"
+    if not importlib.util.find_spec("cv2"):
+        for argv in (["extract_frames", clip, f"{work}/frames"], ["blend_videos", clip, clip, f"{work}/blend.mp4"]):
+            try:
+                dataset_tools.main(argv)
+            except SystemExit as e:
+                check("OpenCV (cv2)" in str(e), f"{argv[0]}: the refusal {e}")
+                print(f"tools: without cv2 {argv[0]} refuses by name: {e}")
+            else:
+                check(False, f"{argv[0]} ran without cv2")
+        return sweep["launches"]
+    start = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        dataset_tools.main(["extract_frames", clip, f"{work}/frames", "--resize", "224"])
+    extract_s = time.perf_counter() - start
+    names = sorted(n for n in os.listdir(f"{work}/frames") if n.endswith(".png"))
+    rows = open(f"{work}/frames/gt.csv").read().split()
+    size = (224, 224 * CLIP["size"][1] // CLIP["size"][0])
+    frame0 = read_png(f"{work}/frames/{names[0]}")
+    check(len(names) == len(rows) == CLIP["frames"] and frame0.shape == (size[1], size[0], 3),
+          f"extract_frames: {len(names)} PNGs, {len(rows)} csv rows, frame {frame0.shape}")
+    served_video = f"{work}/video/b8_pipelined.mp4"
+    start = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        dataset_tools.main(["blend_videos", clip, served_video, f"{work}/blend.mp4"])
+    blend_s = time.perf_counter() - start
+    check(frames_in(f"{work}/blend.mp4") == CLIP["frames"], "blend_videos: frames written")
+    print(f"tools: extract_frames --resize 224 of the clip ({CLIP['frames']} frames of {CLIP['size'][0]}x"
+          f"{CLIP['size'][1]} -> {size[0]}x{size[1]} PNGs, LANCZOS in numpy): {CLIP['frames'] / extract_s:.1f} "
+          f"frames/s ({extract_s:.2f} s); blend_videos of the clip and phase 21's b8 video: "
+          f"{CLIP['frames'] / blend_s:.1f} frames/s ({blend_s:.2f} s, mp4v) (host, {card})")
+    return sweep["launches"]
+
+
+def phase22(card: str, work: str) -> dict:
+    """Phase 22 (a) and (b), each with its seconds; the launches of the
+    paths it adds."""
+    start = time.perf_counter()
+    supervised = supervised_phase(card, work)
+    mid = time.perf_counter()
+    swa = tools_phase(card, work, supervised["log_dir"])
+    print(f"phase 22: (a) {mid - start:.1f} s, (b) {time.perf_counter() - mid:.1f} s")
+    return {"train_cli_supervised": supervised["launches"], "evaluate_swa": swa}
+
+
 def cli_worker(argv: list[str]) -> None:
     """``python3 chip_smoke.py --cli <out> <train_localizer argv>``: the
     training CLI in this process (under torchrun: this rank's) with the
     launches counted from 0; under torchrun one tensor is all-reduced over
-    the group after the run. Writes ``<out>.<rank>.json``."""
+    the group after the run. Writes ``<out>.<rank>.json``, and at every
+    snapshot the launches so far."""
     import torch.distributed as dist
 
     from loans_tpu_torch import parallel
 
     out, argv = argv[0], argv[1:]
+    save_state = checkpoint.save_state
+
+    def save_and_count(path, state):
+        """A snapshot, and this process's launches so far and its process
+        group beside it (``<out>.<rank>.at<step>.json``): a killed run
+        leaves its counts."""
+        save_state(path, state)
+        at = f"{out}.{parallel.rank()}.at{int(state.step)}.json"
+        with open(at + ".tmp", "w") as f:
+            json.dump({"launches": read_launches(), "pgid": os.getpgrp()}, f)
+        os.replace(at + ".tmp", at)
+
+    checkpoint.save_state = save_and_count
     with parallel.process_group("cuda"), deterministic_cudnn():
         reset_launches()
         log_dir = train_localizer.main(argv)
@@ -3083,6 +3331,9 @@ def main() -> None:
         start = time.perf_counter()
         monitor = phase21(card, work, cli["log_dir"], rotated_dir, ssd["log_dir"])
         print(f"phase 21: {time.perf_counter() - start:.1f} s")
+        start = time.perf_counter()
+        tools = phase22(card, work)
+        print(f"phase 22: {time.perf_counter() - start:.1f} s")
     k1_src, k2_src = "separable_sampler.cu", "rotated_sampler.cu"
     launches1, launches2 = cli["launches"], k2_train["launches"]
     in_situ = {**k1_train["device_in_situ_ms"], **k2_train["device_in_situ_ms"]}
@@ -3097,15 +3348,17 @@ def main() -> None:
                             "serve_live": monitor["serve_live"] if kind == "fwd" else 0,
                             "train_cli_plot": monitor["train_cli_plot"][kind],
                             "train_ssd_plot": monitor["train_ssd_plot"] if kind == "fwd" else 0} for kind in COUNTERS}
+    tools_paths = {kind: {"train_cli_supervised": tools["train_cli_supervised"][kind],
+                          "evaluate_swa": tools["evaluate_swa"] if kind == "fwd" else 0} for kind in COUNTERS}
     k1_paths = {
         "fwd": {"serve": serving["launches"], "train": k1_train["launches"]["fwd"], "train_cli": launches1["fwd"],
                 "evaluate": evaluated["K1"], "serve_vbp": vbp_launches, "bench": bench_launches["fwd"], **ssd_paths,
-                **files_paths["fwd"], **monitor_paths["fwd"]},
+                **files_paths["fwd"], **monitor_paths["fwd"], **tools_paths["fwd"]},
         "bwd_theta": {"train": k1_train["launches"]["bwd_theta"], "train_cli": launches1["bwd_theta"],
                       "evaluate": 0, "bench": bench_launches["bwd_theta"], **no_ssd, **files_paths["bwd_theta"],
-                      **monitor_paths["bwd_theta"]},
+                      **monitor_paths["bwd_theta"], **tools_paths["bwd_theta"]},
         "bwd_images": {"train": 0, "train_cli": launches1["bwd_images"], "evaluate": 0, "bench": 0, **no_ssd,
-                       **files_paths["bwd_images"], **monitor_paths["bwd_images"]},
+                       **files_paths["bwd_images"], **monitor_paths["bwd_images"], **tools_paths["bwd_images"]},
     }
     k1_fwd = kernel_entry("separable_sampler_fwd", k1_src, "loans_tpu/ops/stn.py:421", launches1["fwd"],
                           max([k1["max_abs_err"]] + [t["max_abs_err"] for t in ssd["crops"].values()]

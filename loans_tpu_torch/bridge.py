@@ -1,4 +1,4 @@
-"""Weights carried across: JAX/flax variables -> PyTorch ``state_dict``.
+"""Weights carried across: JAX/flax variables <-> PyTorch ``state_dict``.
 
 The port's modules carry the flax module names of the JAX package, so a
 flax leaf ``<module path>/<leaf>`` maps to the ``state_dict`` key
@@ -23,6 +23,10 @@ target model, raises: there is no partial load.
 Variables come as nested dicts (as ``flax.serialization.msgpack_restore``
 or ``Module.init`` give them) or as flat dicts keyed by ``/``-joined
 paths, with numpy arrays (or anything ``np.asarray`` takes) as leaves.
+
+``from_state_dict`` is the inverse: a ``state_dict`` back to flax's nested
+``params`` and ``batch_stats`` as numpy arrays (no flax needed), which
+``tools/import_torch_snapshot.py`` writes as the JAX package's snapshots.
 """
 
 from __future__ import annotations
@@ -65,6 +69,20 @@ def _torch_leaf(path: str, value: np.ndarray) -> tuple[str, np.ndarray]:
     return ".".join(modules) + "." + _LEAF_NAMES[leaf], value
 
 
+def torch_leaves(params: Mapping, batch_stats: Mapping | None = None) -> dict[str, np.ndarray]:
+    """Every flax leaf of ``params`` (and ``batch_stats``) under its
+    ``state_dict`` key, in PyTorch's layout, with no model to check them
+    against (a stripped snapshot's subset too)."""
+    leaves = {}
+    for collection in (params, batch_stats or {}):
+        for path, value in flatten_variables(collection).items():
+            key, value = _torch_leaf(path, value)
+            if key in leaves:
+                raise KeyError(f"{key!r} given twice")
+            leaves[key] = value
+    return leaves
+
+
 def to_state_dict(
     model: nn.Module,
     params: Mapping,
@@ -77,13 +95,7 @@ def to_state_dict(
     ``ValueError`` on shape mismatches.
     """
     target = model.state_dict()
-    leaves = {}
-    for collection in (params, batch_stats or {}):
-        for path, value in flatten_variables(collection).items():
-            key, value = _torch_leaf(path, value)
-            if key in leaves:
-                raise KeyError(f"{key!r} given twice")
-            leaves[key] = value
+    leaves = torch_leaves(params, batch_stats)
     expected = {k for k in target if not k.endswith("num_batches_tracked")}
     missing = sorted(expected - leaves.keys())
     extra = sorted(leaves.keys() - expected)
@@ -123,3 +135,41 @@ def ssd_state_dict(model: nn.Module, params: Mapping) -> dict[str, torch.Tensor]
     JAX SSD's ``params`` (it has no batch statistics; L2Norm's ``scale``
     leaf becomes ``VGG16Extractor_0.L2Norm_0.weight``)."""
     return to_state_dict(model, params)
+
+
+def from_state_dict(state_dict: Mapping) -> tuple[dict, dict]:
+    """flax ``(params, batch_stats)`` of a port ``state_dict``, nested dicts
+    of numpy arrays: the inverse of ``to_state_dict``. A 4-D ``weight`` is a
+    convolution's kernel (OIHW -> HWIO), a 2-D one a Dense kernel
+    (transposed back), a 1-D one BatchNorm's or L2Norm's ``scale``;
+    ``running_mean`` and ``running_var`` go to ``batch_stats``;
+    ``num_batches_tracked`` counters, which flax does not keep, are
+    dropped."""
+    params: dict = {}
+    batch_stats: dict = {}
+    for key, tensor in state_dict.items():
+        *modules, leaf = key.split(".")
+        if leaf == "num_batches_tracked":
+            continue
+        value = tensor.detach().cpu().numpy() if isinstance(tensor, torch.Tensor) else np.asarray(tensor)
+        if not modules:
+            raise KeyError(f"no flax counterpart for {key!r}")
+        if leaf == "weight":
+            collection, name = params, {4: "kernel", 2: "kernel", 1: "scale"}.get(value.ndim)
+            if name is None:
+                raise KeyError(f"no flax counterpart for a {value.ndim}-D weight {key!r}")
+            if value.ndim == 4:
+                value = value.transpose(2, 3, 1, 0)
+            elif value.ndim == 2:
+                value = value.T
+        elif leaf == "bias":
+            collection, name = params, "bias"
+        elif leaf in ("running_mean", "running_var"):
+            collection, name = batch_stats, leaf[len("running_"):]
+        else:
+            raise KeyError(f"no flax counterpart for {key!r}")
+        node = collection
+        for module in modules:
+            node = node.setdefault(module, {})
+        node[name] = np.ascontiguousarray(value)
+    return params, batch_stats

@@ -163,15 +163,33 @@ def alpha_composite(dst: np.ndarray, src: np.ndarray) -> np.ndarray:
     return out
 
 
-def paste(dst: np.ndarray, src: np.ndarray, xy: tuple[int, int]) -> np.ndarray:
-    """Pillow's ``dst.paste(src, xy)`` without a mask: a plain copy of every
-    channel, clipped to ``dst``; in place, returns ``dst``."""
+def paste(dst: np.ndarray, src: np.ndarray, xy: tuple[int, int], mask: np.ndarray | None = None) -> np.ndarray:
+    """Pillow's ``dst.paste(src, xy, mask)``, clipped to ``dst``; in place,
+    returns ``dst``. Without a mask, a plain copy of every channel. With
+    one (of ``src``'s size: HW for an 'L' mask, else its last channel, as
+    Pillow reads an 'LA' or 'RGBA' mask), each channel of ``dst`` blends
+    as Pillow's ``BLEND``: ``(t + (t >> 8)) >> 8`` of ``t = dst * (255 - a)
+    + src * a + 128``. An RGBA ``src`` pastes its colour into an RGB
+    ``dst`` unconverted, as Pillow does."""
     x, y = int(xy[0]), int(xy[1])
     h, w = src.shape[:2]
+    if mask is not None and mask.shape[:2] != (h, w):
+        raise ValueError(f"bad transparency mask: {mask.shape[:2]} for an image of {(h, w)}")
     x0, y0 = max(x, 0), max(y, 0)
     x1, y1 = min(x + w, dst.shape[1]), min(y + h, dst.shape[0])
-    if x1 > x0 and y1 > y0:
-        dst[y0:y1, x0:x1] = src[y0 - y : y1 - y, x0 - x : x1 - x]
+    if x1 <= x0 or y1 <= y0:
+        return dst
+    region = (slice(y0 - y, y1 - y), slice(x0 - x, x1 - x))
+    if mask is None:
+        dst[y0:y1, x0:x1] = src[region]
+        return dst
+    c = dst.shape[2]
+    s = src[region]
+    if s.shape[2] < c:  # Pillow converts an RGB source for an RGBA target
+        s = to_rgba(s)
+    a = (mask[region] if mask.ndim == 2 else mask[region][..., -1]).astype(np.int64)[..., None]
+    t = dst[y0:y1, x0:x1].astype(np.int64) * (255 - a) + s[..., :c].astype(np.int64) * a + 128
+    dst[y0:y1, x0:x1] = ((t >> 8) + t) >> 8
     return dst
 
 

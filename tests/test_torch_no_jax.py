@@ -19,7 +19,11 @@ IoU-labeled csv and a labeled csv with the host loader, its log dir swept
 against the csv, the SSD CLI on a gt json with ``--no-augment``, and the
 augmenting SSD transform refused by name without cv2; then a frame streamed
 from the progress client to its server, and the BBoxPlotter (its caption's
-font) and the video CLI refused by name without Pillow and cv2.
+font) and the video CLI refused by name without Pillow and cv2; then the
+offline tools (tkinter blocked too): ``generate_scenes``, ``paste_and_crop``
+and the snapshot edits of the dataset tools, the subcommands that need
+matplotlib or cv2 and the annotator refused by name, and the supervisor
+over a child that completes.
 It also checks that importing the package never runs ``nvcc`` and that
 the CUDA kernels of both crops refuse CPU tensors. The sources of the port
 and of ``chip_smoke.py``, which runs on the card, name none of them in an
@@ -44,7 +48,7 @@ class _Spy(_Popen):
         spawned.append(args)
         super().__init__(args, *a, **k)
 subprocess.Popen = _Spy
-for name in ("jax", "jaxlib", "flax", "optax", "loans_tpu", "PIL", "cv2", "matplotlib"):
+for name in ("jax", "jaxlib", "flax", "optax", "loans_tpu", "PIL", "cv2", "matplotlib", "tkinter"):
     sys.modules[name] = None  # any import of them raises ImportError
 
 import importlib, pkgutil, tempfile
@@ -233,7 +237,53 @@ assert not [m for m, v in sys.modules.items()
             if v is not None and m.split(".")[0] in ("jax", "flax", "loans_tpu", "PIL", "cv2", "matplotlib",
                                                     "tkinter")]
 
+# the offline tools without Pillow, cv2, matplotlib or tkinter: the dataset
+# tools on PNGs and .pt snapshots, the refusals by name, the annotator's
+# refusal, and the supervisor over a child that completes
+from loans_tpu_torch.cli import annotate, dataset_tools, supervise
+tools = tempfile.mkdtemp()
+write_png(os.path.join(tools, "bg.png"), scenes.items[0][0])
+write_png(os.path.join(tools, "stamp.png"), np.full((6, 5, 4), (200, 200, 200, 255), np.uint8))
+json.dump([{"image": os.path.join(tools, "bg.png"), "bounding_boxes": [[2, 3, 12, 20]]}],
+          open(os.path.join(tools, "ann.json"), "w"))
+with contextlib.redirect_stdout(io.StringIO()):
+    dataset_tools.main(["generate_scenes", os.path.join(tools, "ann.json"), os.path.join(tools, "gen"),
+                        "--stamps", os.path.join(tools, "stamp.png"), "--per-background", "2"])
+    dataset_tools.main(["paste_and_crop", os.path.join(tools, "pc"), "2", "--image-size", "32", "32",
+                        "--output-size", "8", "8"])
+    __import__("shutil").copy(os.path.join(log_dir, "Localizer_1.pt"), os.path.join(log_dir, "Localizer_2.pt"))
+    dataset_tools.main(["average_snapshots", log_dir])
+    dataset_tools.main(["strip_params", os.path.join(log_dir, "Localizer_swa.pt"), os.path.join(tools, "s.pt")])
+    dataset_tools.main(["convert_snapshot", os.path.join(log_dir, "Localizer_2.pt"), os.path.join(tools, "c.pt")])
+assert datasets.load_image(os.path.join(tools, "gen", "images", "1.png"))[5, 10].tolist() == [200, 200, 200]
+assert "param_predictor.bias" not in torch.load(os.path.join(tools, "s.pt"), weights_only=True)
+for argv, library in ((["plot_log", log_dir, "x.png"], "matplotlib"), (["label_histogram", "a.csv", "x.png"],
+                      "matplotlib"), (["extract_frames", "a.avi", tools], "OpenCV (cv2)"),
+                      (["blend_videos", "a.avi", "b.avi", "c.mp4"], "OpenCV (cv2)")):
+    try:
+        dataset_tools.main(argv)
+    except SystemExit as e:
+        assert f"needs {library}, which is not installed" in str(e), e
+    else:
+        raise AssertionError(f"{argv[0]} ran without {library}")
+try:
+    annotate.main(["view", os.path.join(tools, "ann.json")])
+except SystemExit as e:
+    assert "needs tkinter, which is not installed" in str(e), e
+else:
+    raise AssertionError("the annotator ran without tkinter")
+assert not [m for m, v in sys.modules.items()
+            if v is not None and m.split(".")[0] in ("jax", "flax", "loans_tpu", "PIL", "cv2", "matplotlib",
+                                                    "tkinter")]
+supervise.RESTART_PAUSE_S = 0.0
+child = ("import json, os, sys; d = os.path.join(sys.argv[2], 'run'); os.makedirs(d); "
+         "json.dump([{'iteration': 1}], open(os.path.join(d, 'log'), 'w'))")
+with contextlib.redirect_stdout(io.StringIO()):
+    assert supervise.main(["--poll-interval", "0.05", "--", sys.executable, "-c", child, "--log-dir",
+                           os.path.join(tools, "logs")]) == 0
+
 import shutil
+shutil.rmtree(tools)
 shutil.rmtree(out_dir)
 shutil.rmtree(log_dir)
 shutil.rmtree(ssd_root)
@@ -280,14 +330,16 @@ def test_port_sources_import_no_jax():
     by ``data/datasets.py`` (image formats other than PNG, where Pillow is
     installed), ``insights/rendering.py`` (text in Pillow's font) and
     ``insights/media.py`` (GIF encoding); tkinter only by
-    ``insights/progress_server.py`` (the viewer's window)."""
+    ``insights/progress_server.py`` (the viewer's window) and
+    ``cli/annotate.py`` (the annotator's windows)."""
     sources = [*PACKAGE.rglob("*.py"), ROOT / "chip_smoke.py"]
     assert not _imports(sources, ("jax", "jaxlib", "flax", "optax", "loans_tpu"))
     assert not _imports(sources, ("PIL", "cv2", "tkinter"), module_level_only=True)
     pil = {f for f, _ in _imports(sources, ("PIL",))}
     assert pil <= {"loans_tpu_torch/data/datasets.py", "loans_tpu_torch/insights/rendering.py",
                    "loans_tpu_torch/insights/media.py"}, pil
-    assert {f for f, _ in _imports(sources, ("tkinter",))} == {"loans_tpu_torch/insights/progress_server.py"}
+    assert {f for f, _ in _imports(sources, ("tkinter",))} == {"loans_tpu_torch/insights/progress_server.py",
+                                                              "loans_tpu_torch/cli/annotate.py"}
 
 
 def test_training_cli_path_imports_no_cv2():
