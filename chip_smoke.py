@@ -157,7 +157,22 @@ Phases, one line or more each; any failure exits non-zero:
    ``convert_snapshot``'s model-only files served through
    ``LocalizerInference`` with boxes equal to the training snapshots' bit
    for bit, ``extract_frames --resize 224`` and ``blend_videos`` on phase
-   21's clip (frames/s), or without cv2 their refusals.
+   21's clip (frames/s), or without cv2 their refusals;
+23. backbone pretraining and the pretrained-weight importers: (a)
+   ``cli.pretrain_backbone.main`` in this process, R-50 224^2 as a 64-class
+   stamp classifier at batch 64 in calls of 50 steps (256 train and 64 val
+   scenes), 150 iterations in float32 and 50 in bf16: loss, accuracy and
+   images/s per log entry, the validation accuracy, the torchvision export's
+   318 tensors, no crop kernel launched; (b) one classifier step at batch 4
+   on the card against the CPU from the same weights and flip mask (logits,
+   loss, BatchNorm statistics, parameters after the update); (c) (a)'s
+   export through ``cli.import_resnet50 --verify``, and the same weights as
+   a chainer npz (conv1 in BGR) through ``--source chainer``: the two files'
+   tensors equal bit for bit; (d) phase 10's CLI from the imported backbone
+   for 16 iterations, every backbone tensor restored and equal to the file's
+   before the first step; (e) a VGG16 drawn here in torchvision's layout
+   through ``cli.import_vgg16``, then the SSD CLI from it for 8 iterations
+   at batch 32, every ``VGG16Extractor_0`` convolution restored.
 
 The line before the last is a JSON object of the six kernels: launches in
 phase 10, the CLI (K1), and phase 8 (K2), with the launches of every path
@@ -167,7 +182,8 @@ driven (``launches_by_path``; phases 16 and 18 as ``train_ssd``,
 ranks over gloo, summed) and ``train_cli_torchrun``, phase 21 as
 ``serve_video`` (b8_pipelined; K2: ``serve_video_rotated``), ``serve_live``,
 ``train_cli_plot`` and ``train_ssd_plot``, phase 22 as ``train_cli_supervised``
-(both attempts, summed) and ``evaluate_swa``), errors from phases 2, 2b, 7, 15 and 21,
+(both attempts, summed) and ``evaluate_swa``, phase 23 as ``pretrain_backbone`` (K1 and K2:
+0), ``train_cli_pretrained`` and ``train_ssd_pretrained``), errors from phases 2, 2b, 7, 15 and 21,
 K1's forward's times at phase 15's shapes (``ssd_shapes``) and phase 21's
 (``serving_shapes``), times and
 bounds at the training batch: ``ms`` per call (CUDA events, host launch
@@ -201,7 +217,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from loans_tpu_torch import bench
-from loans_tpu_torch.cli import evaluate, train_localizer, train_ssd
+from loans_tpu_torch.cli import evaluate, import_resnet50, import_vgg16, pretrain_backbone, train_localizer, train_ssd
 from loans_tpu_torch.cli.bench_samplers import FLUSH_BYTES, device_events, device_time, fmt_us
 from loans_tpu_torch.data import ssd_device, synthetic
 from loans_tpu_torch.data.cv_resize import resize_linear
@@ -215,6 +231,7 @@ from loans_tpu_torch.inference import SSDInference, load_inference
 from loans_tpu_torch.inference.localizer import LocalizerInference, set_precision
 from loans_tpu_torch.insights.rendering import write_png
 from loans_tpu_torch.models import SSD300
+from loans_tpu_torch.models.resnet import ResNet
 from loans_tpu_torch.ops import _cuda, stn
 from loans_tpu_torch.ops.geometry import Size, box_to_theta, corners_to_aabb, theta_corners
 from loans_tpu_torch.ops.stn import sample_rotated_kernel, sample_separable, sample_separable_kernel
@@ -381,6 +398,16 @@ SSD_SHORT = ["--iterations", "16", "--snapshot-interval", "16"]
 # and within 1e-6 on 99% of the entries
 SSD_STEP_TOL = {"images": 2e-4, "loc": 1e-3, "iou_margin": 1e-5, "loss": 1e-4, "params_share": 0.99}
 SSD_LR = 1e-4
+# phase 23 (b): one classifier step (batch 4, full width, TF32 off), card against CPU,
+# relative to each tensor's largest entry: the logits 1e-4 (R-50's float32
+# features summed in another order by cuDNN and the CPU; phase 4 holds
+# serving's theta, a dense layer on the same features, to ~2e-5); the loss
+# 1e-4 (a cross-entropy of those logits); the BatchNorm statistics STEP_TOL's
+# 1e-4; the parameters after the update as phase 17's (Adam moves a weight by
+# about lr in its gradient's sign, which a gradient within float32 error of 0
+# may flip): within 2 lr + 1e-7 everywhere and 1e-6 on 99% of the entries
+PRETRAIN_STEP_TOL = {"logits": 1e-4, "loss": 1e-4, "bn_stats": STEP_TOL["bn_stats"],
+                     "params_share": SSD_STEP_TOL["params_share"]}
 # phase 18: the served detections, card against CPU, at a score gate of
 # 0.1 (phase 16's young model passes the served 0.6 with few boxes), where
 # a score is more than 0.05 from the gate (a box nearer may pass on one
@@ -3234,6 +3261,222 @@ def phase22(card: str, work: str) -> dict:
     print(f"phase 22: (a) {mid - start:.1f} s, (b) {time.perf_counter() - mid:.1f} s")
     return {"train_cli_supervised": supervised["launches"], "evaluate_swa": swa}
 
+# -- phase 23 -------------------------------------------------------------------
+# (a) the pretraining CLI at full width, the JAX tool's defaults (R-50 224^2,
+# 64 classes, batch 64, 50 steps a call), cut to 256 train and 64 val scenes
+# and 150 iterations in float32, 50 in bf16
+PRETRAIN_ARGV = ["--classes", "64", "--pool", "256", "--val-pool", "64", "--batch-size", str(TRAIN_BATCH),
+                 "--steps-per-call", "50", "--log-interval", "50", "--seed", str(SEED), "--device", DEVICE]
+PRETRAIN_ITERATIONS = {"pretrain": 150, "pretrain bf16": 50}
+TORCHVISION_R50_TENSORS = 318  # resnet50's state_dict without fc
+# (d) phase 10's CLI from the imported backbone; (e) SSD300 from a VGG16
+PRETRAINED_CLI_ARGV = CLI_ARGV + ["--iterations", "16", "--snapshot-interval", "16"]
+PRETRAINED_SSD_ARGV = SSD_ARGV + ["--iterations", "8", "--log-interval", "8", "--eval-interval", "8",
+                                  "--snapshot-interval", "8"]
+# (out, in) channels of torchvision vgg16's 13 convolutions
+VGG16_CONVS = [(64, 3), (64, 64), (128, 64), (128, 128), (256, 128), (256, 256), (256, 256), (512, 256),
+               (512, 512), (512, 512), (512, 512), (512, 512), (512, 512)]
+
+
+def pretrain_run(tag: str, argv: list[str], card: str) -> dict:
+    """``pretrain_backbone.main(argv)`` in this process with every count at
+    0: finite losses, accuracies in [0, 1], the exported file's tensors, no
+    crop kernel launched; images/s per log entry, over each interval."""
+    args = pretrain_backbone.get_parser().parse_args(argv)
+    torch.cuda.synchronize()
+    reset_launches()
+    start = time.perf_counter()
+    result = pretrain_backbone.main(argv)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - start
+    launches = read_launches()
+    check(launches == {"K1": NO_LAUNCHES, "K2": NO_LAUNCHES}, f"{tag}: launches {launches}")
+    log = result["log"]
+    check(len(log) == args.iterations // args.log_interval, f"{tag}: {len(log)} log entries")
+    done, seconds, rates = 0, 0.0, []
+    for e in log:
+        check(np.isfinite(e["loss"]) and 0 <= e["acc"] <= 1, f"{tag}: {e}")
+        at = e["iteration"] * args.batch_size / e["images_per_sec"]  # the CLI's cumulative rate -> seconds
+        rates.append((e["iteration"] - done) * args.batch_size / (at - seconds))
+        done, seconds = e["iteration"], at
+        print(f"{tag}: iteration {e['iteration']} loss {e['loss']:.4f} acc {e['acc']:.4f} images_per_sec "
+              f"{e['images_per_sec']:.1f} (the interval's {rates[-1]:.1f}) ({card})")
+    exported = torch.load(result["out"], map_location="cpu", weights_only=True)
+    check(result["tensors"] == len(exported) == TORCHVISION_R50_TENSORS, f"{tag}: {len(exported)} tensors written")
+    check(all(torch.isfinite(v).all() for v in exported.values()), f"{tag}: the export is finite")
+    check(0 <= result["val_acc"] <= 1, f"{tag}: val acc {result['val_acc']}")
+    print(f"{tag}: {args.iterations} iterations of R-50 at batch {args.batch_size} in {wall_s:.2f} s of wall time "
+          f"(pools included); val acc {result['val_acc']:.4f}; {len(exported)} tensors in torchvision's layout; "
+          f"K1 and K2 launches 0 ({card})")
+    return {**result, "launches": launches, "interval_images_per_s": rates}
+
+
+def pretrain_step_against_cpu() -> dict:
+    """One classifier step at batch 4 on the card and on the CPU from the
+    same weights, scenes and flip mask: logits, loss, the BatchNorm
+    statistics and the parameters after the update (PRETRAIN_STEP_TOL)."""
+    pool = pretrain_backbone.make_scene_pool(4, 64, SEED, SEED + 23)
+    torch.manual_seed(SEED + 23)
+    cpu_model = ResNet(50, class_labels=64)
+    flip = pretrain_backbone.draw_flips(torch.Generator().manual_seed(SEED + 24), 4)
+    runs = {}
+    for device, model in (("cpu", cpu_model), (DEVICE, copy.deepcopy(cpu_model).to(DEVICE))):
+        logits = []
+        hook = model.register_forward_hook(lambda m, i, out, logits=logits: logits.append(out.detach().cpu()))
+        batch = {k: torch.from_numpy(v).to(device) for k, v in pool.items()}
+        _, metrics = pretrain_backbone.classifier_step(create_train_state(model, LR), batch, flip.to(device))
+        hook.remove()
+        runs[device] = {"metrics": {k: float(v) for k, v in metrics.items()}, "logits": logits[0],
+                        "state": {k: v.detach().cpu() for k, v in model.state_dict().items()}}
+    cpu, card = runs["cpu"], runs[DEVICE]
+
+    def rel(a, b):
+        return float((a - b).abs().max() / b.abs().max().clamp(min=1e-30))
+
+    diffs = {"logits": rel(card["logits"], cpu["logits"]),
+             "loss": abs(card["metrics"]["loss"] - cpu["metrics"]["loss"]) / abs(cpu["metrics"]["loss"]),
+             "bn_stats": max(rel(card["state"][k], v) for k, v in cpu["state"].items() if "running" in k)}
+    worst, close, total = 0.0, 0, 0
+    for key, p in cpu["state"].items():
+        if "running" in key or key.endswith("num_batches_tracked"):
+            continue
+        diff = (card["state"][key] - p).abs()
+        worst = max(worst, float(diff.max()))
+        close, total = close + int((diff <= 1e-6).sum()), total + diff.numel()
+    print("pretrain step card vs CPU (R-50 224^2, 64 classes, batch 4, float32, lr 1e-3; relative): "
+          + ", ".join(f"{k} {v:.3e} (tol {PRETRAIN_STEP_TOL[k]:g})" for k, v in diffs.items())
+          + f"; loss card {card['metrics']['loss']:.6f} CPU {cpu['metrics']['loss']:.6f}, acc card "
+          f"{card['metrics']['acc']:.2f} CPU {cpu['metrics']['acc']:.2f}; parameters after the update max abs diff "
+          f"{worst:.3e} (tol {2 * LR:g} + 1e-7), {close / total:.5f} of the entries within 1e-6 "
+          f"(tol {PRETRAIN_STEP_TOL['params_share']})")
+    for k, v in diffs.items():
+        check(v <= PRETRAIN_STEP_TOL[k], f"pretrain step: {k} {v}")
+    check(worst <= 2 * LR + 1e-7 and close >= PRETRAIN_STEP_TOL["params_share"] * total, "pretrain step: parameters")
+    return {**diffs, "params_max_abs": worst}
+
+
+def r50_imports(pth: str, root: str) -> str:
+    """(a)'s export through ``import_resnet50 --verify``, and the same
+    weights renamed to chainer's keys with conv1 in BGR, as an npz, through
+    ``--source chainer --verify``: the two files equal bit for bit."""
+    tv = torch.load(pth, map_location="cpu", weights_only=True)
+    npz = {}
+    for _, _, tv_conv, tv_bn, ch_conv, ch_bn in import_resnet50.r50_modules():
+        w = tv[f"{tv_conv}.weight"].numpy()
+        npz[f"{ch_conv}/W"] = w[:, ::-1] if tv_conv == "conv1" else w  # caffe's conv1 reads BGR
+        for leaf, ch_leaf in import_resnet50.CHAINER_BN.items():
+            npz[f"{ch_bn}/{ch_leaf}"] = tv[f"{tv_bn}.{leaf}"].numpy()
+    np.savez(f"{root}/r50_chainer.npz", **npz)
+    verify = ["--verify", "--device", DEVICE]
+    outs = [import_resnet50.main([pth, f"{root}/r50_torchvision.pt"] + verify),
+            import_resnet50.main([f"{root}/r50_chainer.npz", f"{root}/r50_chainer.pt", "--source", "chainer"]
+                                 + verify)]
+    a, b = (checkpoint.load_params(p) for p in outs)
+    check(list(a) == list(b) and all(a[k].dtype == b[k].dtype and torch.equal(a[k], b[k]) for k in a),
+          "import: the torchvision and chainer files differ")
+    print(f"import: torchvision .pth and chainer .npz (conv1 in BGR) -> {len(a)} backbone tensors each, verified in "
+          f"a Localizer on {DEVICE}; the two files' tensors equal bit for bit")
+    return outs[0]
+
+
+@contextlib.contextmanager
+def restores_recorded():
+    """``checkpoint.restore_params`` recording each call: the keys it
+    loaded, and those whose tensor differs from the file's right after the
+    restore (before the first step)."""
+    restore, records = checkpoint.restore_params, []
+
+    def recorded(path, model, skip_prefixes=()):
+        loaded = restore(path, model, skip_prefixes)
+        file, state = checkpoint.load_params(path), model.state_dict()
+        records.append({"loaded": loaded, "unequal": [k for k in loaded if not torch.equal(state[k].cpu(), file[k])]})
+        return loaded
+
+    checkpoint.restore_params = recorded
+    try:
+        yield records
+    finally:
+        checkpoint.restore_params = restore
+
+
+def pretrained_cli(card: str, r50_pt: str, root: str) -> dict[str, int]:
+    """Phase 10's CLI from the imported backbone: every backbone tensor
+    restored and equal to the file's before the first step; K1's launches."""
+    with restores_recorded() as records:
+        run = cli_run("cli pretrained", PRETRAINED_CLI_ARGV + ["--pretrained-model", r50_pt], card, f"{root}/cli")
+    backbone = [k for k in build_model("Localizer", **MANIFEST["localizer"]["kwargs"]).state_dict()
+                if k.startswith("feature_extractor.") and not k.endswith("num_batches_tracked")]
+    check(len(records) == 1 and sorted(records[0]["loaded"]) == sorted(backbone) and not records[0]["unequal"],
+          f"cli pretrained: restored {[len(r['loaded']) for r in records]} keys of {len(backbone)}")
+    print(f"cli pretrained: --pretrained-model restored {len(records[0]['loaded'])} of {len(backbone)} backbone "
+          f"tensors (the head kept), each equal to the file's before the first step; K1 launches {run['launches']}")
+    return run["launches"]
+
+
+def vgg16_state(seed: int) -> dict[str, torch.Tensor]:
+    """A torchvision ``vgg16`` ``state_dict`` drawn from ``seed`` in its
+    published shapes (13 convolutions, fc6 (4096, 25088), fc7 (4096,
+    4096)), He-scaled so that SSD300 trains from it with finite losses."""
+    rng = np.random.default_rng(seed)
+    shapes = {f"features.{idx}": (cout, cin, 3, 3)
+              for idx, (cout, cin) in zip(import_vgg16.FEATURE_CONVS, VGG16_CONVS)}
+    shapes.update({"classifier.0": (4096, 512 * 7 * 7), "classifier.3": (4096, 4096)})
+    state = {}
+    for name, shape in shapes.items():
+        w = rng.standard_normal(shape, dtype=np.float32)
+        w *= np.float32(np.sqrt(2.0 / np.prod(shape[1:])))
+        state[f"{name}.weight"] = torch.from_numpy(w)
+        state[f"{name}.bias"] = torch.from_numpy(rng.normal(0.0, 0.01, shape[0]).astype(np.float32))
+    return state
+
+
+def pretrained_ssd(card: str, root: str) -> int:
+    """A VGG16 drawn here through ``import_vgg16``, then the SSD CLI from it:
+    every ``VGG16Extractor_0`` convolution restored and equal to the file's
+    before the first step (``L2Norm_0`` kept); K1's forward launches."""
+    pth = f"{root}/vgg16.pth"
+    torch.save(vgg16_state(SEED + 16), pth)
+    size_mb = os.path.getsize(pth) / 2**20
+    start = time.perf_counter()
+    pt = import_vgg16.main([pth, f"{root}/vgg16.pt"])
+    import_s = time.perf_counter() - start
+    os.remove(pth)
+    with restores_recorded() as records:
+        run = ssd_cli_run("ssd pretrained", PRETRAINED_SSD_ARGV + ["--pretrained-model", pt], card, f"{root}/ssd")
+    convs = [k for k in SSD300().state_dict() if k.startswith("VGG16Extractor_0.Conv_")]
+    check(len(records) == 1 and sorted(records[0]["loaded"]) == sorted(convs) and len(convs) == 30
+          and not records[0]["unequal"], f"ssd pretrained: restored {[r['loaded'] for r in records]}")
+    print(f"ssd pretrained: a {size_mb:.0f} MiB torchvision VGG16 converted in {import_s:.2f} s; --pretrained-model "
+          f"restored all {len(convs)} VGG16Extractor_0 convolution tensors (L2Norm_0 kept), each equal to the "
+          f"file's before the first step; K1 forward launches {run['launches']}")
+    return run["launches"]
+
+
+def phase23(card: str, work: str) -> dict:
+    """Phase 23 (a)-(e), each with its seconds; the launches of the paths it
+    adds."""
+    root = f"{work}/pretrain"
+    os.makedirs(root, exist_ok=True)
+    times = [time.perf_counter()]
+    runs = {}
+    for tag, n in PRETRAIN_ITERATIONS.items():
+        out = f"{root}/{tag.replace(' ', '_')}.pth"
+        runs[tag] = pretrain_run(tag, PRETRAIN_ARGV + ["--iterations", str(n), "--out", out]
+                                 + (["--bf16"] if "bf16" in tag else []), card)
+    times.append(time.perf_counter())
+    pretrain_step_against_cpu()
+    times.append(time.perf_counter())
+    r50_pt = r50_imports(runs["pretrain"]["out"], root)
+    times.append(time.perf_counter())
+    cli = pretrained_cli(card, r50_pt, root)
+    times.append(time.perf_counter())
+    ssd = pretrained_ssd(card, root)
+    times.append(time.perf_counter())
+    print("phase 23: " + ", ".join(f"({part}) {b - a:.1f} s" for part, a, b in zip("abcde", times, times[1:])))
+    pretrain = {name: {kind: sum(r["launches"][name][kind] for r in runs.values()) for kind in COUNTERS}
+                for name in KERNELS}
+    return {"pretrain_backbone": pretrain, "train_cli_pretrained": cli, "train_ssd_pretrained": ssd}
+
 
 def cli_worker(argv: list[str]) -> None:
     """``python3 chip_smoke.py --cli <out> <train_localizer argv>``: the
@@ -3334,6 +3577,9 @@ def main() -> None:
         start = time.perf_counter()
         tools = phase22(card, work)
         print(f"phase 22: {time.perf_counter() - start:.1f} s")
+        start = time.perf_counter()
+        pretrained = phase23(card, work)
+        print(f"phase 23: {time.perf_counter() - start:.1f} s")
     k1_src, k2_src = "separable_sampler.cu", "rotated_sampler.cu"
     launches1, launches2 = cli["launches"], k2_train["launches"]
     in_situ = {**k1_train["device_in_situ_ms"], **k2_train["device_in_situ_ms"]}
@@ -3349,7 +3595,11 @@ def main() -> None:
                             "train_cli_plot": monitor["train_cli_plot"][kind],
                             "train_ssd_plot": monitor["train_ssd_plot"] if kind == "fwd" else 0} for kind in COUNTERS}
     tools_paths = {kind: {"train_cli_supervised": tools["train_cli_supervised"][kind],
-                          "evaluate_swa": tools["evaluate_swa"] if kind == "fwd" else 0} for kind in COUNTERS}
+                          "evaluate_swa": tools["evaluate_swa"] if kind == "fwd" else 0,
+                          "pretrain_backbone": pretrained["pretrain_backbone"]["K1"][kind],
+                          "train_cli_pretrained": pretrained["train_cli_pretrained"][kind],
+                          "train_ssd_pretrained": pretrained["train_ssd_pretrained"] if kind == "fwd" else 0}
+                   for kind in COUNTERS}
     k1_paths = {
         "fwd": {"serve": serving["launches"], "train": k1_train["launches"]["fwd"], "train_cli": launches1["fwd"],
                 "evaluate": evaluated["K1"], "serve_vbp": vbp_launches, "bench": bench_launches["fwd"], **ssd_paths,
@@ -3374,6 +3624,7 @@ def main() -> None:
     for kind in COUNTERS:
         k2_paths[kind]["train_ddp"] = ddp["train_ddp"]["K2"][kind]
         k2_paths[kind]["serve_video_rotated"] = monitor["serve_video"]["K2"] if kind == "fwd" else 0
+        k2_paths[kind]["pretrain_backbone"] = pretrained["pretrain_backbone"]["K2"][kind]
     print(json.dumps({"kernels": [
         k1_fwd,
         kernel_entry("separable_sampler_bwd_theta", k1_src, "loans_tpu/ops/stn.py:641", launches1["bwd_theta"],

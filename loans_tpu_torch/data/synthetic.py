@@ -18,8 +18,7 @@ As in the JAX package, ``_parallel_generate`` splits the work into
 ``4 * min(8, os.cpu_count())`` chunks, each with its own stream, so the
 data depend on the host's CPU count. ``generate_dataset`` writes a dataset
 to PNG files and an ``images.csv``, with stamps and backgrounds from image
-files where given; its pixels are the JAX tool's. The pinned stamp of
-classifier pretraining is not ported.
+files where given; its pixels are the JAX tool's.
 """
 
 from __future__ import annotations
@@ -268,11 +267,13 @@ class PasteAndCropGenerator:
             self._resized_backgrounds[key] = out
         return out
 
-    def paste(self) -> PasteResult:
-        """Composite one scene."""
+    def paste(self, stamp_index: int | None = None) -> PasteResult:
+        """Composite one scene; ``stamp_index`` pins the stamp, which is
+        then not drawn (classifier pretraining labels a scene by its stamp,
+        ``cli/pretrain_backbone.py``)."""
         rng = self.rng
         background = rng.choice(self.backgrounds)
-        stamp = rng.choice(self.stamps)
+        stamp = self.stamps[stamp_index] if stamp_index is not None else rng.choice(self.stamps)
         if rng.random() >= 0.5:
             stamp = image_ops.flip_lr(stamp)
         w, h = self.image_size

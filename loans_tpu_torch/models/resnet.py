@@ -29,6 +29,7 @@ Submodules carry the flax module names of the JAX package (``Conv_0``,
 
 from __future__ import annotations
 
+import math
 from typing import Sequence
 
 import torch
@@ -54,6 +55,7 @@ BLOCK_CONFIGS: dict[int, Sequence[int]] = {
 _BASIC = (18, 20, 34)
 _SMALL = (32, 44, 56, 110)
 _BOTTLENECK = (19, 50, 101, 152)
+TRUNCATED_NORMAL_STD = 0.87962566103423978  # std of a unit normal truncated to [-2, 2]
 
 
 class Conv2d(nn.Conv2d):
@@ -70,6 +72,27 @@ class Conv2d(nn.Conv2d):
             return super().forward(x)
         bias = None if self.bias is None else self.bias.to(dt)
         return self._conv_forward(x.to(dt), self.weight.to(dt), bias)
+
+
+class Dense(nn.Linear):
+    """flax's ``nn.Dense``: a lecun-normal kernel (truncated normal, as
+    ``nn.initializers.lecun_normal``) and a zero bias; with
+    ``compute_dtype`` set (``set_dtypes``), its input, weight and bias are
+    cast to it for the call, as ``nn.Dense(dtype=...)`` casts them."""
+
+    compute_dtype: torch.dtype | None = None
+
+    def __init__(self, in_features: int, out_features: int):
+        super().__init__(in_features, out_features)
+        std = math.sqrt(1.0 / in_features) / TRUNCATED_NORMAL_STD
+        nn.init.trunc_normal_(self.weight, 0.0, std, -2.0 * std, 2.0 * std)
+        nn.init.zeros_(self.bias)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.compute_dtype
+        if dt is None:
+            return super().forward(x)
+        return F.linear(x.to(dt), self.weight.to(dt), self.bias.to(dt))
 
 
 class BatchNorm2d(nn.BatchNorm2d):
@@ -129,7 +152,7 @@ class BatchNorm2d(nn.BatchNorm2d):
 
 
 def set_dtypes(module: nn.Module, dtype: torch.dtype, norm_dtype: torch.dtype) -> nn.Module:
-    """Run ``module``'s convolutions in ``dtype`` and give its BatchNorms
+    """Run ``module``'s convolutions (and ``Dense`` layers) in ``dtype`` and give its BatchNorms
     outputs in ``norm_dtype`` (the JAX package's ``dtype`` and
     ``norm_dtype`` module fields); parameters and statistics keep their
     dtype. Both float32 leave the modules as they are, so a float32 model
@@ -137,7 +160,7 @@ def set_dtypes(module: nn.Module, dtype: torch.dtype, norm_dtype: torch.dtype) -
     if dtype == torch.float32 and norm_dtype == torch.float32:
         return module
     for m in module.modules():
-        if isinstance(m, Conv2d):
+        if isinstance(m, (Conv2d, Dense)):
             m.compute_dtype = dtype
         elif isinstance(m, BatchNorm2d):
             m.out_dtype = norm_dtype
@@ -289,17 +312,19 @@ def cover_all_max_pool(x: torch.Tensor, window: int, stride: int) -> torch.Tenso
 
 
 class ResNet(nn.Module):
-    """Configurable scratch ResNet feature extractor.
+    """Configurable scratch ResNet feature extractor / classifier.
 
     ``forward`` takes NCHW input and returns the res5 (or res4 for the
     small variants) NCHW feature map; ResNet-20 global-pools it, as in the
-    JAX package. The JAX package's classifier head (``class_labels``,
-    used for backbone pretraining) is not ported.
+    JAX package. With ``class_labels`` set it global-pools the map and
+    returns the (N, class_labels) logits of ``Dense_0`` (backbone
+    pretraining, ``cli/pretrain_backbone.py``).
     """
 
-    def __init__(self, n_layers: int = 18):
+    def __init__(self, n_layers: int = 18, class_labels: int | None = None):
         super().__init__()
         self.n_layers = n_layers
+        self.class_labels = class_labels
         stem_ch = 16 if n_layers in _SMALL else 64
         self.Conv_0 = Conv2d(3, stem_ch, 7, stride=2, padding=3, bias=False)
         self.BatchNorm_0 = batch_norm(stem_ch)
@@ -314,6 +339,8 @@ class ResNet(nn.Module):
             chs = (16, 32, 64) if n_layers in _SMALL else (64, 128, 256, 512, 512, 512)
             for b, ch, s in zip(blocks, chs, strides):
                 in_ch = _add(self, BasicStage(in_ch, b, ch, s)).out_ch
+        if class_labels is not None:
+            self.Dense_0 = Dense(self.feature_dim, class_labels)
 
     def forward(self, x, vbp: list | None = None):
         _record(vbp, x)
@@ -323,8 +350,10 @@ class ResNet(nn.Module):
         for name, stage in self.named_children():
             if "Stage_" in name:
                 h = stage(h, vbp)
-        if self.n_layers == 20:
+        if self.class_labels is not None or self.n_layers == 20:
             h = h.mean(dim=(2, 3))
+        if self.class_labels is not None:
+            h = self.Dense_0(h)
         return h
 
     @property

@@ -35,19 +35,18 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from loans_tpu_torch.models.resnet import Conv2d, set_dtypes
+from loans_tpu_torch.models.resnet import TRUNCATED_NORMAL_STD, Conv2d, set_dtypes
 from loans_tpu_torch.ops.multibox import MultiboxCoder, default_boxes
 
 # caffe's VGG mean, RGB order, for x*255 inputs
 VGG_MEAN_RGB = (123.68, 116.779, 103.939)
-_TRUNCATED_STD = 0.87962566103423978  # std of a unit normal truncated to [-2, 2]
 
 
 def _conv(in_ch: int, ch: int, k: int, stride: int = 1, pad: int | None = None, dilation: int = 1) -> Conv2d:
     """flax's ``nn.Conv`` with He-normal weights (truncated normal, as
     ``nn.initializers.he_normal``) and a zero bias."""
     conv = Conv2d(in_ch, ch, k, stride=stride, padding=k // 2 if pad is None else pad, dilation=dilation)
-    std = math.sqrt(2.0 / (in_ch * k * k)) / _TRUNCATED_STD
+    std = math.sqrt(2.0 / (in_ch * k * k)) / TRUNCATED_NORMAL_STD
     nn.init.trunc_normal_(conv.weight, 0.0, std, -2.0 * std, 2.0 * std)
     nn.init.zeros_(conv.bias)
     return conv

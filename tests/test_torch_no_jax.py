@@ -411,3 +411,49 @@ def test_parallel_imports_without_jax_or_toolchains():
     assert "PARALLEL_NO_JAX_OK" in proc.stdout
     assert not _imports(list((PACKAGE / "parallel").rglob("*.py")),
                         ("jax", "jaxlib", "flax", "optax", "loans_tpu", "PIL", "cv2", "matplotlib", "triton"))
+
+
+WEIGHT_TOOLS_SCRIPT = r"""
+import os, subprocess, sys, tempfile
+spawned = []
+_Popen = subprocess.Popen
+class _Spy(_Popen):
+    def __init__(self, args, *a, **k):
+        spawned.append(args)
+        super().__init__(args, *a, **k)
+subprocess.Popen = _Spy
+for name in ("jax", "jaxlib", "flax", "optax", "msgpack", "loans_tpu", "PIL", "cv2", "matplotlib", "triton"):
+    sys.modules[name] = None  # any import of them raises ImportError
+import torch
+from loans_tpu_torch.cli import import_resnet50, import_vgg16, pretrain_backbone
+from loans_tpu_torch.ops import _cuda
+assert _cuda.load_library.cache_info().currsize == 0
+work = tempfile.mkdtemp()
+result = pretrain_backbone.main(["--out", os.path.join(work, "b.pth"), "--classes", "2", "--pool", "4",
+                                 "--val-pool", "2", "--iterations", "1", "--batch-size", "2", "--steps-per-call", "1",
+                                 "--log-interval", "1", "--image-size", "32", "--device", "cpu"])
+assert result["tensors"] == 318 and len(result["log"]) == 1
+import_resnet50.main([result["out"], os.path.join(work, "b.pt"), "--verify", "--device", "cpu"])
+assert import_vgg16.FEATURE_CONVS[-1] == 28
+assert not spawned, spawned
+assert not [m for m, v in sys.modules.items() if v is not None and m.split(".")[0] in
+            ("jax", "flax", "optax", "msgpack", "loans_tpu", "PIL", "cv2", "matplotlib", "triton")]
+import shutil
+shutil.rmtree(work)
+print("WEIGHT_TOOLS_NO_JAX_OK")
+"""
+
+
+def test_weight_tools_run_without_jax_or_toolchains():
+    """The pretraining CLI and the two importers import without jax, flax,
+    optax, msgpack, ``loans_tpu``, Pillow, cv2, matplotlib or Triton and
+    run no ``nvcc``: one pretraining iteration at 32² on the CPU, its
+    export imported and verified."""
+    env = {**os.environ, "PYTHONPATH": str(ROOT)}
+    proc = subprocess.run([sys.executable, "-c", WEIGHT_TOOLS_SCRIPT], cwd=str(ROOT), env=env, capture_output=True,
+                          text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    assert "WEIGHT_TOOLS_NO_JAX_OK" in proc.stdout
+    tools = [PACKAGE / "cli" / f"{name}.py" for name in ("pretrain_backbone", "import_resnet50", "import_vgg16")]
+    assert not _imports(tools, ("jax", "jaxlib", "flax", "optax", "msgpack", "loans_tpu", "PIL", "cv2",
+                                "matplotlib", "triton"))
