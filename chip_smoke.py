@@ -172,7 +172,24 @@ Phases, one line or more each; any failure exits non-zero:
    for 16 iterations, every backbone tensor restored and equal to the file's
    before the first step; (e) a VGG16 drawn here in torchvision's layout
    through ``cli.import_vgg16``, then the SSD CLI from it for 8 iterations
-   at batch 32, every ``VGG16Extractor_0`` convolution restored.
+   at batch 32, every ``VGG16Extractor_0`` convolution restored;
+24. the synthetic cache and data-parallel pretraining: (a) ``python -m
+   loans_tpu_torch.cli.warm_cache`` (this script's ``--warm`` mode) at phase
+   10's data flags with 2048 ``stn`` reference crops into a fresh
+   directory: K1's forward once per render batch, the JAX package's file
+   names, the seconds; (b) phase 10's CLI over that cache for one chunk:
+   nothing generated or rendered, its pools (a)'s arrays, the ``data:``
+   seconds cold against cached, crops/s and the recipe's 32768-crop pool
+   worked out from it; (c) phase 10's cache warmed on the CPU against the
+   card's: the same names, scenes and labels, the crops one step apart only
+   where the two devices' float renders, a few position ulps apart,
+   straddle a .5 boundary; (d) ``torchrun --nproc_per_node=<cards>`` of
+   the pretraining CLI (this script's ``--pretrain`` mode, NCCL,
+   deterministic cuDNN) against the same argv in this process (phase 23's
+   for 50 iterations, pools of 64 scenes): the losses and the exports; (e)
+   (run by phase 20's ranks, reported here) two gloo ranks sharing the
+   card run ``classifier_step`` (R-50 224^2, global batch 64, 4 steps),
+   each step against one process's, as phase 20's cases.
 
 The line before the last is a JSON object of the six kernels: launches in
 phase 10, the CLI (K1), and phase 8 (K2), with the launches of every path
@@ -183,7 +200,9 @@ ranks over gloo, summed) and ``train_cli_torchrun``, phase 21 as
 ``serve_video`` (b8_pipelined; K2: ``serve_video_rotated``), ``serve_live``,
 ``train_cli_plot`` and ``train_ssd_plot``, phase 22 as ``train_cli_supervised``
 (both attempts, summed) and ``evaluate_swa``, phase 23 as ``pretrain_backbone`` (K1 and K2:
-0), ``train_cli_pretrained`` and ``train_ssd_pretrained``), errors from phases 2, 2b, 7, 15 and 21,
+0), ``train_cli_pretrained`` and ``train_ssd_pretrained``, phase 24 as ``warm_cache``,
+``train_cli_cached``, ``pretrain_torchrun`` and ``pretrain_ddp`` (the last two 0)),
+errors from phases 2, 2b, 7, 15 and 21,
 K1's forward's times at phase 15's shapes (``ssd_shapes``) and phase 21's
 (``serving_shapes``), times and
 bounds at the training batch: ``ms`` per call (CUDA events, host launch
@@ -1350,6 +1369,18 @@ def cli_run(tag: str, argv: list[str], card: str, log_root: str | None = None) -
             "images_per_s": statistics.median(rates), "log_dir": log_dir}
 
 
+def cli_triples(argv: list[str]) -> tuple[list, tuple, tuple]:
+    """The (scene, box, IoU) triples of the CLI's ``stn`` reference pool
+    under ``argv`` (its seed, sizes and asset world), the scene size and
+    the crop size."""
+    args = train_localizer.get_parser().parse_args(argv)
+    img, crop = tuple(args.target_size), tuple(args.crop_size)
+    triples = synthetic.assessor_triples(
+        train_localizer._synthetic_n(args.reference_file, 1024), output_size=crop, image_size=img,
+        seed=args.seed + 1, low_iou_fraction=args.assessor_low_iou, **train_localizer.build_asset_kw(args))
+    return triples, img, crop
+
+
 def render_against_plain(argv: list[str]) -> None:
     """The CLI's own reference pool of ``--assessor-pipeline stn`` (its
     scenes and boxes: the same seed, size and asset world) rendered by
@@ -1357,12 +1388,8 @@ def render_against_plain(argv: list[str]) -> None:
     ``RENDER_BATCH``, against the plain sampler on the same card tensors:
     the float crops at K1_TOL, the uint8 crops within RENDER_TOL. Before
     the counted run, so these launches are not the path's."""
-    args = train_localizer.get_parser().parse_args(argv)
-    img, crop = tuple(args.target_size), tuple(args.crop_size)
-    n = train_localizer._synthetic_n(args.reference_file, 1024)
-    triples = synthetic.assessor_triples(
-        n, output_size=crop, image_size=img, seed=args.seed + 1,
-        low_iou_fraction=args.assessor_low_iou, **train_localizer.build_asset_kw(args))
+    triples, img, crop = cli_triples(argv)
+    n = len(triples)
     got = np.stack(synthetic.render_stn_crops(triples, crop, device=DEVICE)).astype(np.int16)
     want, err = [], 0.0
     for start in range(0, n, synthetic.RENDER_BATCH):  # the renders' batches, unpadded
@@ -2297,7 +2324,7 @@ DDP_CASES = {  # case: (global batch, steps)
     "SSD300": (SSD_CROP_BATCH, 4),
     "R-18 K2 ratio 0.5": (TRAIN_BATCH, 4),
 }
-DDP_GRAD_HELD = ("localizer head", "assessor", "SSD300")
+DDP_GRAD_HELD = ("localizer head", "assessor", "SSD300", "classifier head")
 DDP_TOL = {"cli_loss": 1e-5, "loss": 1e-4, "grad": 1e-2, "bn_stats": STEP_TOL["bn_stats"], "params_share": 0.9}
 
 
@@ -2326,6 +2353,9 @@ def ddp_models(case: str) -> tuple[list[nn.Module], tuple, object]:
     """``case``'s models on the card (seed ``SEED``), their train states and
     the step's body."""
     torch.manual_seed(SEED)
+    if case == "R-50 classifier":  # phase 24 (e)
+        model = ResNet(50, class_labels=PRETRAIN_CLASSES).to(DEVICE)
+        return [model], (create_train_state(model, LR), None), pretrain_backbone.classifier_body
     if case == "SSD300":
         model = SSD300().to(DEVICE)
         body = ssd_device.SSDPooledBody(model.coder(), 300, augment=True)
@@ -2356,6 +2386,8 @@ def grad_group(case: str, i: int, name: str) -> str:
     held together (see above)."""
     if case == "SSD300":
         return "SSD300"
+    if case == "R-50 classifier":
+        return "classifier head" if name.startswith("Dense_0.") else "classifier backbone"
     if i == 1:
         return "assessor"
     return "localizer head" if name.startswith("param_predictor.") else "localizer backbone"
@@ -2389,7 +2421,7 @@ def step_errors(case: str, got: list[nn.Module], want: list[nn.Module], lr: floa
 
 
 def ddp_case(case: str) -> dict:
-    """``DDP_CASES[case]`` on this rank's share of each global batch, one
+    """``ALL_DDP_CASES[case]`` on this rank's share of each global batch, one
     pooled step a call, each step held against one process's step from the
     same state (made on rank 0, see above). Returns rank 0's record of each
     step (both sides' losses and seconds, ``step_errors``), this rank's
@@ -2400,13 +2432,17 @@ def ddp_case(case: str) -> dict:
     from loans_tpu_torch import parallel
     from loans_tpu_torch.parallel.dryrun import max_difference_from_rank0
 
-    batch, steps = DDP_CASES[case]
+    batch, steps = ALL_DDP_CASES[case]
     lr = SSD_LR if case == "SSD300" else LR
     main = parallel.rank() == 0
     models, states, body = ddp_models(case)
     for m in models:
         parallel.replicate(m)
-    groups = {"train": ddp_ssd_pool()} if case == "SSD300" else training_pools()
+    if case == "R-50 classifier":
+        groups = {"cls": pretrain_backbone.make_scene_pool(PRETRAIN_DDP_POOL, PRETRAIN_CLASSES, SEED, SEED,
+                                                           (INPUT, INPUT))}
+    else:
+        groups = {"train": ddp_ssd_pool()} if case == "SSD300" else training_pools()
     chunks = device_chunk_batches(groups, batch, 1, seed=SEED, device=DEVICE)
     generator = torch.Generator(device=DEVICE).manual_seed(SEED + 20)
     config = AlternatingConfig(image_size=Size(INPUT, INPUT))
@@ -2448,9 +2484,9 @@ def ddp_case(case: str) -> dict:
     return {"records": records, "launches": launches, "spread": max_difference_from_rank0(models)}
 
 
-def ddp_worker(rank: int, init_method: str, out_dir: str) -> None:
-    """One of the ranks that share the card: every case of ``DDP_CASES``;
-    each rank saves its launches, rank 0 its records and the spread."""
+def ddp_worker(rank: int, init_method: str, out_dir: str, cases: tuple[str, ...]) -> None:
+    """One of the ranks that share the card: every case of ``cases``; each
+    rank saves its launches, rank 0 its records and the spread."""
     from loans_tpu_torch import parallel
 
     set_precision()
@@ -2461,7 +2497,7 @@ def ddp_worker(rank: int, init_method: str, out_dir: str) -> None:
     parallel.init_distributed(backend="gloo", init_method=init_method, world_size=DDP_RANKS, rank=rank,
                               device_type="cuda", timeout=600)
     try:
-        results = {case: ddp_case(case) for case in DDP_CASES}
+        results = {case: ddp_case(case) for case in cases}
     finally:
         parallel.shutdown()
     with open(os.path.join(out_dir, f"launches.{rank}.json"), "w") as f:
@@ -2472,6 +2508,8 @@ def ddp_worker(rank: int, init_method: str, out_dir: str) -> None:
 
 
 def ddp_expected_launches(case: str, steps: int) -> dict:
+    if case == "R-50 classifier":  # no crop
+        return {"K1": NO_LAUNCHES, "K2": NO_LAUNCHES}
     if case == "SSD300":  # the augment's window: K1's forward only
         return {"K1": {"fwd": steps, "bwd_theta": 0, "bwd_images": 0}, "K2": NO_LAUNCHES}
     used, unused = ("K1", "K2") if case == "R-50 K1" else ("K2", "K1")
@@ -2482,7 +2520,7 @@ def ddp_compare(case: str, result: dict, card: str) -> None:
     """The ranks' steps against one process's, each from the same state
     (see above); the replicas; both rates (two ranks on one card: a check
     of the collective path, not scaling)."""
-    batch, steps = DDP_CASES[case]
+    batch, steps = ALL_DDP_CASES[case]
     tag = f"ddp {case}"
     records = result["records"]
     check(len(records) == steps, f"{tag}: {len(records)} steps recorded, expected {steps}")
@@ -2516,18 +2554,8 @@ def cli_process(tag: str, argv: list[str], nproc: int, work: str) -> dict:
     """``--cli`` mode of this script in a process of its own, under
     ``torchrun --standalone --nproc_per_node=nproc`` where ``nproc`` > 0:
     its log, launches summed over the ranks, backend and wall seconds."""
-    out = os.path.join(work, tag.replace(" ", "_"))
-    cmd = [sys.executable, os.path.abspath(__file__), "--cli", out] + argv + ["--log-dir", out]
-    if nproc:
-        cmd[1:1] = ["-m", "torch.distributed.run", "--standalone", f"--nproc_per_node={nproc}"]
-    start = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
-    wall_s = time.perf_counter() - start
-    check(proc.returncode == 0, f"{tag}: exit {proc.returncode}:\n{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
-    records = [json.load(open(f"{out}.{r}.json")) for r in range(max(nproc, 1))]
-    launches = {c: {k: sum(r["launches"][c][k] for r in records) for k in COUNTERS} for c in KERNELS}
-    return {"log": MetricsLog.read(records[0]["log_dir"]), "launches": launches, "wall_s": wall_s,
-            "backend": records[0]["backend"], "world": records[0]["world"]}
+    run = tool_process("cli", tag, argv + ["--log-dir", os.path.join(work, tag.replace(" ", "_"))], nproc, work)
+    return {**run, "log": MetricsLog.read(run["log_dir"])}
 
 
 def ddp_cli_phase(card: str, work: str) -> dict:
@@ -2583,19 +2611,17 @@ def dryrun_on_card(card: str) -> None:
     print(f"dryrun: {time.perf_counter() - start:.1f} s (process start included) ({card})")
 
 
-def ddp_phase(card: str, work: str) -> dict:
-    """Phase 20: the CLI under torchrun, then two ranks on the card over
-    gloo, each step against one process's, then the dry run. Returns the
-    launches of each path."""
+def ddp_spawn(out_dir: str, cases: dict[str, tuple[int, int]]) -> dict:
+    """``cases`` on ``DDP_RANKS`` ranks that share the card over gloo, each
+    step against one process's: rank 0's results and each rank's launches,
+    by case."""
     from loans_tpu_torch.parallel.dryrun import free_port
 
-    cli = ddp_cli_phase(card, work)
-    out_dir = os.path.join(work, "ddp")
     os.makedirs(out_dir, exist_ok=True)
     start = time.perf_counter()
-    torch.multiprocessing.spawn(ddp_worker, args=(f"tcp://127.0.0.1:{free_port()}", out_dir), nprocs=DDP_RANKS,
-                                join=True)
-    print(f"ddp: {DDP_RANKS} ranks on one card over gloo, every case with one process's steps on rank 0, "
+    torch.multiprocessing.spawn(ddp_worker, args=(f"tcp://127.0.0.1:{free_port()}", out_dir, tuple(cases)),
+                                nprocs=DDP_RANKS, join=True)
+    print(f"ddp: {DDP_RANKS} ranks on one card over gloo, {', '.join(cases)} with one process's steps on rank 0, "
           f"{time.perf_counter() - start:.1f} s (process start included)")
     with open(os.path.join(out_dir, "rank0.json")) as f:
         results = json.load(f)
@@ -2603,18 +2629,35 @@ def ddp_phase(card: str, work: str) -> dict:
     for r in range(DDP_RANKS):
         with open(os.path.join(out_dir, f"launches.{r}.json")) as f:
             per_rank.append(json.load(f))
+    return {"results": results, "per_rank": per_rank}
+
+
+def ddp_report(card: str, ranks: dict, cases: dict[str, tuple[int, int]]) -> dict:
+    """``cases`` of a ``ddp_spawn`` checked and printed; the launches of the
+    ranks' steps, each rank's checked and then summed."""
     total = {c: dict(NO_LAUNCHES) for c in KERNELS}
-    for case, (_, steps) in DDP_CASES.items():
-        ddp_compare(case, results[case], card)
+    for case, (_, steps) in cases.items():
+        ddp_compare(case, ranks["results"][case], card)
         want = ddp_expected_launches(case, steps)
-        for r, launches in enumerate(per_rank):
+        for r, launches in enumerate(ranks["per_rank"]):
             check(launches[case] == want, f"ddp {case}: rank {r} launched {launches[case]}, expected {want}")
             for c in KERNELS:
                 for k in COUNTERS:
                     total[c][k] += launches[case][c][k]
-    print(f"ddp: launches of the {DDP_RANKS} ranks' steps, summed: {total}")
+    print(f"ddp: launches of the {DDP_RANKS} ranks' steps in {', '.join(cases)}, summed: {total}")
+    return total
+
+
+def ddp_phase(card: str, work: str) -> dict:
+    """Phase 20: the CLI under torchrun, then two ranks on the card over
+    gloo, each step against one process's, then the dry run. The ranks also
+    run phase 24 (e)'s case, whose start-up they share. Returns the launches
+    of each path and the ranks' results."""
+    cli = ddp_cli_phase(card, work)
+    ranks = ddp_spawn(os.path.join(work, "ddp"), ALL_DDP_CASES)
+    total = ddp_report(card, ranks, DDP_CASES)
     dryrun_on_card(card)
-    return {"train_ddp": total, "train_cli_torchrun": cli["launches"]}
+    return {"train_ddp": total, "train_cli_torchrun": cli["launches"], "ranks": ranks}
 
 
 # -- phase 21 ---------------------------------------------------------------
@@ -3265,8 +3308,10 @@ def phase22(card: str, work: str) -> dict:
 # (a) the pretraining CLI at full width, the JAX tool's defaults (R-50 224^2,
 # 64 classes, batch 64, 50 steps a call), cut to 256 train and 64 val scenes
 # and 150 iterations in float32, 50 in bf16
-PRETRAIN_ARGV = ["--classes", "64", "--pool", "256", "--val-pool", "64", "--batch-size", str(TRAIN_BATCH),
-                 "--steps-per-call", "50", "--log-interval", "50", "--seed", str(SEED), "--device", DEVICE]
+PRETRAIN_CLASSES = 64
+PRETRAIN_ARGV = ["--classes", str(PRETRAIN_CLASSES), "--pool", "256", "--val-pool", "64",
+                 "--batch-size", str(TRAIN_BATCH), "--steps-per-call", "50", "--log-interval", "50",
+                 "--seed", str(SEED), "--device", DEVICE]
 PRETRAIN_ITERATIONS = {"pretrain": 150, "pretrain bf16": 50}
 TORCHVISION_R50_TENSORS = 318  # resnet50's state_dict without fc
 # (d) phase 10's CLI from the imported backbone; (e) SSD300 from a VGG16
@@ -3478,6 +3523,320 @@ def phase23(card: str, work: str) -> dict:
     return {"pretrain_backbone": pretrain, "train_cli_pretrained": cli, "train_ssd_pretrained": ssd}
 
 
+# -- phase 24 -------------------------------------------------------------------
+# (a) cli.warm_cache on the card at phase 10's data flags with a reference
+# pool 4 times phase 10's (2048 stn crops: 8 render batches of K1's forward)
+# into a fresh directory, in this script's --warm mode (a process of its own,
+# its launches counted); (b) phase 10's CLI over that cache for one chunk:
+# it renders nothing, and its pools are (a)'s arrays; (c) the cache warmed on
+# the CPU (K1's plain version) against the card's at phase 10's own size: the
+# same names, the scenes and labels equal, the crops one step apart only at a
+# .5 tie (CACHE_FLOAT_TOL below);
+# (d) the pretraining CLI under torchrun (NCCL, one process per card; this
+# script's --pretrain mode) against the same argv in this process (phase
+# 23's, 50 iterations, float32, its pools cut to 64 and 64 scenes: the host
+# makes them serially, ~40 ms a scene), both under deterministic cuDNN: the
+# losses per log entry within DDP_TOL["cli_loss"] and the exports by phase
+# 20's rule; (e) two gloo ranks sharing the card run classifier_step at R-50
+# 224^2, global batch 64, for 4 steps, each against one process's step from
+# the same state, as phase 20's cases (a pool of 64 scenes); phase 20's ranks
+# run it beside its cases, and phase 24 reports it.
+WARM_REFERENCE = 4 * train_localizer._synthetic_n(CLI_ARGV[1], 0)
+WARM_ARGV = [CLI_ARGV[0], f"synthetic:{WARM_REFERENCE}"] + CLI_ARGV[2:] + ["--assessor-refresh", "0"]
+CACHED_ARGV = WARM_ARGV + ["--iterations", str(STEPS_PER_CALL), "--snapshot-interval", str(STEPS_PER_CALL)]
+RECIPE_CROPS = 32768  # the recipe's reference pool (ROADMAP: synthetic:2048/32768/512)
+PRETRAIN_TORCHRUN_ARGV = PRETRAIN_ARGV + ["--iterations", "50", "--pool", "64", "--val-pool", "64"]
+# (c): the card and the CPU compute theta and the sample positions in float32
+# with roundings that may differ, so a sample may move by a few ulps of its
+# position (2^-16 px between 128 and 256 px) and a crop value by that times
+# the step between two neighbouring pixels (at most 1 in [0, 1]): the float
+# crops of the two devices are held to 4 such ulps, and a pixel may round to
+# the other uint8 value only where a .5 boundary lies between them, within
+# that times 255 steps of either (a sample halfway between two pixels whose
+# values differ by an odd number is such a tie)
+CACHE_FLOAT_TOL = 4 * 2.0**-16
+PRETRAIN_DDP_POOL = 64
+PRETRAIN_DDP_CASES = {"R-50 classifier": (TRAIN_BATCH, 4)}
+ALL_DDP_CASES = {**DDP_CASES, **PRETRAIN_DDP_CASES}
+
+
+@contextlib.contextmanager
+def data_seconds():
+    """The ``data:`` seconds of each split the training CLI's
+    ``build_datasets`` builds in the block, by its label."""
+    timed, seconds = train_localizer._timed, {}
+
+    def recorded(what, build):
+        start = time.perf_counter()
+        out = timed(what, build)
+        seconds[what] = time.perf_counter() - start
+        return out
+
+    train_localizer._timed = recorded
+    try:
+        yield seconds
+    finally:
+        train_localizer._timed = timed
+
+
+@contextlib.contextmanager
+def cache_reads():
+    """The datasets ``cached_synthetic`` returns in the block, and whether
+    each was generated (a miss) or read (a hit)."""
+    cached, records = synthetic.cached_synthetic, []
+
+    def recorded(cache_dir, kind, build, **kw):
+        generated = []
+
+        def build_recorded(items):
+            generated.append(items is None)
+            return build(items=items)
+
+        records.append({"ds": cached(cache_dir, kind, build_recorded, **kw), "generated": any(generated)})
+        return records[-1]["ds"]
+
+    synthetic.cached_synthetic = recorded
+    try:
+        yield records
+    finally:
+        synthetic.cached_synthetic = cached
+
+
+def cache_names(argv: list[str]) -> list[str]:
+    """The cache file names of the training CLI's three synthetic splits
+    under ``argv``: the JAX package's keys (``cached_synthetic``), written
+    out here from the flags."""
+    args = train_localizer.get_parser().parse_args(argv)
+    world = {"asset_seed": str(args.seed + 9973), "n_assets": str(args.synthetic_assets)}
+    img = list(args.target_size)
+    n = [train_localizer._synthetic_n(f, 0) for f in (args.train_file, args.reference_file, args.val_file)]
+    return [synthetic._cache_key("scenes", n=n[0], image_size=img, seed=args.seed, labeled=False, **world),
+            synthetic._cache_key("crops", n=n[1], crop=list(args.crop_size), image_size=img, seed=args.seed + 1,
+                                 pipeline=args.assessor_pipeline, low_iou=args.assessor_low_iou, **world),
+            synthetic._cache_key("scenes", n=n[2], image_size=img, seed=args.seed + 2, labeled=True, **world)]
+
+
+def load_cache(cache_dir: str) -> dict[str, list[np.ndarray]]:
+    out = {}
+    for name in sorted(os.listdir(cache_dir)):
+        with np.load(os.path.join(cache_dir, name), allow_pickle=False) as z:
+            out[name] = [z[f"col{i}"] for i in range(int(z["ncols"]))]
+    return out
+
+
+def tool_process(mode: str, tag: str, argv: list[str], nproc: int, work: str) -> dict:
+    """``--cli``, ``--warm`` or ``--pretrain`` mode of this script in a
+    process of its own, under ``torchrun --standalone
+    --nproc_per_node=nproc`` where ``nproc`` > 0: rank 0's record
+    (launches summed over the ranks), its stdout and the wall seconds."""
+    out = os.path.join(work, tag.replace(" ", "_"))
+    cmd = [sys.executable, os.path.abspath(__file__), f"--{mode}", out] + argv
+    if nproc:
+        cmd[1:1] = ["-m", "torch.distributed.run", "--standalone", f"--nproc_per_node={nproc}"]
+    start = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
+    wall_s = time.perf_counter() - start
+    check(proc.returncode == 0, f"{tag}: exit {proc.returncode}:\n{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+    records = [json.load(open(f"{out}.{r}.json")) for r in range(max(nproc, 1))]
+    launches = {c: {k: sum(r["launches"][c][k] for r in records) for k in COUNTERS} for c in KERNELS}
+    return {**records[0], "launches": launches, "stdout": proc.stdout, "wall_s": wall_s}
+
+
+def warm_phase(card: str, work: str) -> dict:
+    """Phase 24 (a) and (b): the cache warmed on the card, then the CLI
+    over it. Returns the launches of both paths."""
+    cache = f"{work}/cache"
+    warm = tool_process("warm", "warm", WARM_ARGV + ["--synthetic-cache", cache], 0, work)
+    renders = -(-WARM_REFERENCE // synthetic.RENDER_BATCH)
+    check(warm["renders"] == renders and warm["launches"] == {"K1": {**NO_LAUNCHES, "fwd": renders}, "K2": NO_LAUNCHES},
+          f"warm: {warm['renders']} render batches, launches {warm['launches']}")
+    names = sorted(cache_names(WARM_ARGV))
+    check(sorted(os.listdir(cache)) == names, f"warm: the cache holds {sorted(os.listdir(cache))}, expected {names}")
+    said = [line for line in warm["stdout"].splitlines() if line.startswith("warmed cache in ")]
+    check(len(said) == 1 and said[0].endswith(f"-> {cache}"), f"warm: printed {said}")
+    print(f"warm: {said[0]} ({warm['wall_s']:.1f} s of wall time, process start included); K1 forward launches "
+          f"{warm['launches']['K1']['fwd']} = {renders} render batches of {synthetic.RENDER_BATCH}; files {names} "
+          f"(the JAX package's keys) ({card})")
+
+    files = load_cache(cache)
+    with data_seconds() as hit_s, cache_reads() as reads:
+        run = cli_run("cli cached", CACHED_ARGV + ["--synthetic-cache", cache], card)
+    want = cli_launches(CACHED_ARGV, 0, STEPS_PER_CALL)["K1"]
+    check(not any(r["generated"] for r in reads) and len(reads) == 3, "cli cached: a split was generated")
+    check(run["launches"] == {**want, "fwd": want["fwd"] - renders},
+          f"cli cached: K1 launches {run['launches']}, expected {want} less {renders} renders")
+    for name, r in zip(cache_names(CACHED_ARGV), reads):
+        cols = [np.stack([np.asarray(v) for v in col]) for col in zip(*r["ds"].items)]
+        check(len(cols) == len(files[name]) and all(a.dtype == b.dtype and np.array_equal(a, b)
+                                                    for a, b in zip(cols, files[name])),
+              f"cli cached: the pool read from {name} differs from the file (a)")
+    cold_s = warm["data_seconds"]
+    for what, seconds in cold_s.items():
+        print(f"warm: data: {what} cold {seconds:.2f} s in (a), from the cache {hit_s[what]:.2f} s in (b) ({card})")
+    ref = next(w for w in cold_s if "reference" in w)
+    rate = WARM_REFERENCE / cold_s[ref]
+    print(f"warm: {rate:.1f} stn crops/s rendered cold (triples on the host, K1 on the card); the recipe's "
+          f"{RECIPE_CROPS}-crop pool would take {RECIPE_CROPS / rate:.0f} s at that rate (worked out, not measured) "
+          f"({card})")
+    print(f"cli cached: one chunk of {STEPS_PER_CALL} iterations over the warmed cache, nothing generated or "
+          f"rendered, K1 launches {run['launches']}, its three pools equal to (a)'s files")
+    return {"warm_cache": warm["launches"], "train_cli_cached": run["launches"]}
+
+
+def render_floats(triples: list, img: tuple, crop: tuple, device: str) -> np.ndarray:
+    """The ``stn`` crops of ``triples`` as ``render_stn_crops`` makes them
+    on ``device`` (K1's forward on the card, its plain version on the CPU),
+    before they are rounded to uint8: float32 in [0, 1]."""
+    out = []
+    for start in range(0, len(triples), synthetic.RENDER_BATCH):
+        part = triples[start : start + synthetic.RENDER_BATCH]
+        scenes = torch.from_numpy(np.stack([t[0] for t in part])).to(device).float() / 255.0
+        theta = box_to_theta(torch.from_numpy(np.stack([t[1] for t in part])).to(device), Size(*img))
+        sampler = sample_separable_kernel if torch.device(device).type == "cuda" else sample_separable
+        out.append(sampler(scenes, theta, Size(*crop)).cpu().numpy())
+    return np.concatenate(out)
+
+
+def cpu_cache_against_card(work: str) -> None:
+    """Phase 24 (c): phase 10's cache warmed on the CPU against the card's:
+    the crops one step apart only where the two float renders, within
+    CACHE_FLOAT_TOL of each other, lie on both sides of a .5 boundary."""
+    from loans_tpu_torch.cli import warm_cache
+
+    dirs = {"cpu": f"{work}/cache_cpu", DEVICE: f"{work}/cache_card"}
+    for device, cache_dir in dirs.items():
+        warm_cache.main(CLI_ARGV + ["--synthetic-cache", cache_dir, "--device", device])
+    cpu, card = (load_cache(d) for d in (dirs["cpu"], dirs[DEVICE]))
+    check(sorted(cpu) == sorted(card) == sorted(cache_names(CLI_ARGV)), f"cache cpu: names {sorted(cpu)}")
+    crops = cache_names(CLI_ARGV)[1]
+    for name in card:
+        for i, (a, b) in enumerate(zip(cpu[name], card[name])):
+            check(a.dtype == b.dtype and a.shape == b.shape, f"cache cpu: {name} col{i} {a.shape} {b.shape}")
+            if name == crops and i == 0:
+                diff = np.abs(a.astype(np.int16) - b.astype(np.int16))
+                triples, img, crop = cli_triples(CLI_ARGV)
+                floats = {d: render_floats(triples, img, crop, d) for d in ("cpu", DEVICE)}
+                err = float(np.abs(floats["cpu"] - floats[DEVICE]).max())
+                steps = floats["cpu"][diff > 0].astype(np.float64) * 255.0
+                to_tie = float(np.abs(steps - np.floor(steps) - 0.5).max(initial=0.0))
+                share = float((diff > 0).mean())
+                check(int(diff.max()) <= RENDER_TOL["steps"] and err <= CACHE_FLOAT_TOL
+                      and to_tie <= CACHE_FLOAT_TOL * 255.0,
+                      f"cache cpu: crops differ by up to {int(diff.max())} on {share:.2e} of the pixels, floats "
+                      f"{err:.3e} apart, a differing pixel {to_tie:.3e} steps from a .5 boundary")
+            else:
+                check(np.array_equal(a, b), f"cache cpu: {name} col{i} differs")
+    print(f"cache cpu: phase 10's cache warmed with --device cpu (K1's plain version) against {DEVICE} (K1): the "
+          f"same {len(card)} file names, scenes and labels equal; the {len(card[crops][0])} stn crops differ by up to "
+          f"{int(diff.max())} step (tol {RENDER_TOL['steps']}) on {share:.2e} of the pixels; the two float renders "
+          f"{err:.3e} apart (tol {CACHE_FLOAT_TOL:.3e}), and every differing pixel within {to_tie:.3e} steps of a .5 "
+          f"boundary (tol {CACHE_FLOAT_TOL * 255:.3e}): rounded apart at a tie")
+
+
+def export_rule(got_pth: str, want_pth: str, lr: float) -> tuple[float, float]:
+    """Phase 20's rule for two exports: the share of entries within 0.1 lr
+    and the largest difference in units of lr."""
+    got, want = (torch.load(p, map_location="cpu", weights_only=True) for p in (got_pth, want_pth))
+    check(list(got) == list(want), "pretrain torchrun: the exports' keys differ")
+    close = total = 0
+    largest = 0.0
+    for k, w in want.items():
+        if w.is_floating_point():
+            d = (got[k] - w).abs()
+            close, total, largest = close + int((d <= 0.1 * lr).sum()), total + d.numel(), max(largest, float(d.max()))
+    return close / total, largest / lr
+
+
+def pretrain_torchrun(card: str, work: str) -> dict[str, dict[str, int]]:
+    """Phase 24 (d): the pretraining CLI under torchrun against the same
+    argv in this process."""
+    n = torch.cuda.device_count()
+    start = time.perf_counter()
+    plain = run_tool("pretrain", PRETRAIN_TORCHRUN_ARGV + ["--out", f"{work}/pretrain_plain.pth"])
+    plain["wall_s"] = time.perf_counter() - start
+    ddp = tool_process("pretrain", "pretrain torchrun", PRETRAIN_TORCHRUN_ARGV + ["--out", f"{work}/pretrain_ddp.pth"],
+                       n, work)
+    for tag, run in (("pretrain plain", plain), ("pretrain torchrun", ddp)):
+        check(run["launches"] == {"K1": NO_LAUNCHES, "K2": NO_LAUNCHES}, f"{tag}: {run['launches']}")
+    check(ddp["world"] == n and ddp["backend"] == ["nccl", float(n)],
+          f"pretrain torchrun: world {ddp['world']}, backend and all-reduce {ddp['backend']}")
+    log, want = ddp["result"]["log"], plain["result"]["log"]
+    check(len(log) == len(want) == 1, f"pretrain torchrun: {len(log)} and {len(want)} log entries")
+    for a, b in zip(log, want):
+        rel = abs(a["loss"] - b["loss"]) / abs(b["loss"])
+        print(f"pretrain torchrun: iteration {a['iteration']} loss {a['loss']:.6f} (plain {b['loss']:.6f}, rel "
+              f"{rel:.2e}, tol {DDP_TOL['cli_loss']:g}), acc {a['acc']:.4f} (plain {b['acc']:.4f}), images/s "
+              f"{a['images_per_sec']:.1f} (plain {b['images_per_sec']:.1f}) ({card})")
+        check(np.isfinite(a["loss"]) and rel <= DDP_TOL["cli_loss"] and a["iteration"] == b["iteration"],
+              f"pretrain torchrun: {a} against {b}")
+    share, largest = export_rule(ddp["result"]["out"], plain["result"]["out"], LR)
+    print(f"pretrain torchrun: {n} process(es) on NCCL; val acc {ddp['result']['val_acc']:.4f} (plain "
+          f"{plain['result']['val_acc']:.4f}); the exports within 0.1 lr on {share:.5f} of the entries (tol "
+          f"{DDP_TOL['params_share']:g}), largest difference {largest:.3f} lr; wall {ddp['wall_s']:.1f} s "
+          f"(torchrun and process start included) against {plain['wall_s']:.1f} s in this process (pools "
+          f"included); K1 and K2 launches 0")
+    check(share >= DDP_TOL["params_share"], f"pretrain torchrun: exports within 0.1 lr on {share}")
+    return ddp["launches"]
+
+
+def phase24(card: str, work: str, ranks: dict | None = None) -> dict:
+    """Phase 24 (a)-(e), each with its seconds; the launches of the paths it
+    adds. (e) reads ``ranks``, phase 20's ``ddp_spawn`` (run here when
+    none is given)."""
+    times = [time.perf_counter()]
+    warmed = warm_phase(card, work)
+    times.append(time.perf_counter())
+    cpu_cache_against_card(work)
+    times.append(time.perf_counter())
+    torchrun = pretrain_torchrun(card, work)
+    times.append(time.perf_counter())
+    ranks = ranks or ddp_spawn(os.path.join(work, "ddp_pretrain"), PRETRAIN_DDP_CASES)
+    ddp = ddp_report(card, ranks, PRETRAIN_DDP_CASES)
+    times.append(time.perf_counter())
+    print("phase 24: " + ", ".join(f"({part}) {b - a:.1f} s" for part, a, b in zip(("a-b", "c", "d", "e"), times,
+                                                                                     times[1:])))
+    return {**warmed, "pretrain_torchrun": torchrun, "pretrain_ddp": ddp}
+
+
+def tool_worker(mode: str, argv: list[str]) -> None:
+    """``python3 chip_smoke.py --warm|--pretrain <out> <argv>``:
+    ``cli.warm_cache`` or ``cli.pretrain_backbone`` in this process (under
+    torchrun: this rank's) with the launches counted from 0, under
+    deterministic cuDNN; under torchrun one tensor is all-reduced over the
+    group after the run. Writes ``<out>.<rank>.json``: the launches, the
+    render batches, the ``data:`` seconds by split, the pretraining result,
+    the world and the backend."""
+    out, argv = argv[0], argv[1:]
+    record = run_tool(mode, argv)
+    with open(f"{out}.{record['rank']}.json", "w") as f:
+        json.dump(record, f)
+
+
+def run_tool(mode: str, argv: list[str]) -> dict:
+    """``tool_worker``'s run, in this process: its record."""
+    import torch.distributed as dist
+
+    from loans_tpu_torch import parallel
+    from loans_tpu_torch.cli import warm_cache
+
+    with parallel.process_group("cuda"), deterministic_cudnn(), data_seconds() as seconds:
+        reset_launches()
+        synthetic.render_stn_crops.batches = 0
+        result = None
+        if mode == "pretrain":
+            result = pretrain_backbone.main(argv)
+        else:
+            warm_cache.main(argv)
+        launches = read_launches()
+        backend = None
+        if dist.is_initialized():
+            x = torch.ones(1, device=parallel.bind_device("cuda"))
+            dist.all_reduce(x)
+            backend = [dist.get_backend(), float(x)]
+        return {"launches": launches, "renders": synthetic.render_stn_crops.batches, "data_seconds": seconds,
+                "result": result, "backend": backend, "rank": parallel.rank(), "world": parallel.world_size()}
+
+
 def cli_worker(argv: list[str]) -> None:
     """``python3 chip_smoke.py --cli <out> <train_localizer argv>``: the
     training CLI in this process (under torchrun: this rank's) with the
@@ -3580,6 +3939,9 @@ def main() -> None:
         start = time.perf_counter()
         pretrained = phase23(card, work)
         print(f"phase 23: {time.perf_counter() - start:.1f} s")
+        start = time.perf_counter()
+        cached = phase24(card, work, ddp["ranks"])
+        print(f"phase 24: {time.perf_counter() - start:.1f} s")
     k1_src, k2_src = "separable_sampler.cu", "rotated_sampler.cu"
     launches1, launches2 = cli["launches"], k2_train["launches"]
     in_situ = {**k1_train["device_in_situ_ms"], **k2_train["device_in_situ_ms"]}
@@ -3598,7 +3960,11 @@ def main() -> None:
                           "evaluate_swa": tools["evaluate_swa"] if kind == "fwd" else 0,
                           "pretrain_backbone": pretrained["pretrain_backbone"]["K1"][kind],
                           "train_cli_pretrained": pretrained["train_cli_pretrained"][kind],
-                          "train_ssd_pretrained": pretrained["train_ssd_pretrained"] if kind == "fwd" else 0}
+                          "train_ssd_pretrained": pretrained["train_ssd_pretrained"] if kind == "fwd" else 0,
+                          "warm_cache": cached["warm_cache"]["K1"][kind],
+                          "train_cli_cached": cached["train_cli_cached"][kind],
+                          "pretrain_torchrun": cached["pretrain_torchrun"]["K1"][kind],
+                          "pretrain_ddp": cached["pretrain_ddp"]["K1"][kind]}
                    for kind in COUNTERS}
     k1_paths = {
         "fwd": {"serve": serving["launches"], "train": k1_train["launches"]["fwd"], "train_cli": launches1["fwd"],
@@ -3625,6 +3991,9 @@ def main() -> None:
         k2_paths[kind]["train_ddp"] = ddp["train_ddp"]["K2"][kind]
         k2_paths[kind]["serve_video_rotated"] = monitor["serve_video"]["K2"] if kind == "fwd" else 0
         k2_paths[kind]["pretrain_backbone"] = pretrained["pretrain_backbone"]["K2"][kind]
+        for path in ("warm_cache", "pretrain_torchrun", "pretrain_ddp"):
+            k2_paths[kind][path] = cached[path]["K2"][kind]
+        k2_paths[kind]["train_cli_cached"] = 0  # cli_run checks K2's launches at 0
     print(json.dumps({"kernels": [
         k1_fwd,
         kernel_entry("separable_sampler_bwd_theta", k1_src, "loans_tpu/ops/stn.py:641", launches1["bwd_theta"],
@@ -3652,5 +4021,7 @@ def main() -> None:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--cli"]:
         cli_worker(sys.argv[2:])
+    elif sys.argv[1:2] in (["--warm"], ["--pretrain"]):
+        tool_worker(sys.argv[1][2:], sys.argv[2:])
     else:
         main()

@@ -25,9 +25,17 @@ head in bfloat16, as the JAX tool's ``--bf16``. ``--image-size`` (default
 224, the JAX tool's fixed size) shrinks the scenes for a test.
 ``--device`` defaults to ``cuda``.
 
-It runs one process: the JAX tool is data-parallel over a host's devices,
-the port's torchrun version is not written, and under ``WORLD_SIZE > 1``
-the tool refuses to start.
+Data-parallel over N GPUs, one process each, as the JAX tool is over a
+host's devices::
+
+    torchrun --standalone --nproc_per_node=N -m loans_tpu_torch.cli.pretrain_backbone --out ...
+
+``--batch-size`` is the global batch; it must divide by N. Each process
+trains on ``cuda:LOCAL_RANK`` (``--device cpu``: gloo on the CPU) on its
+columns of every batch, with BatchNorm over the global batch, the
+gradients averaged over the ranks and the flips drawn for the global
+batch; the logged loss and accuracy are global means, each rank scores a
+share of the validation pool, and rank 0 prints and writes ``--out``.
 """
 
 from __future__ import annotations
@@ -41,7 +49,9 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from loans_tpu_torch import parallel
 from loans_tpu_torch.cli.import_resnet50 import BN_LEAVES, r50_modules
+from loans_tpu_torch.data.device_augment import draw_rows
 from loans_tpu_torch.models.localizer import IMAGENET_MEAN_RGB
 from loans_tpu_torch.train.state import TrainState
 
@@ -101,8 +111,11 @@ def preprocess(model: torch.nn.Module, u8: torch.Tensor) -> torch.Tensor:
 
 def draw_flips(generator: torch.Generator, n: int) -> torch.Tensor:
     """(n,) bool: which images of a batch are flipped, each with
-    probability 1/2, drawn on ``generator``'s device."""
-    return torch.rand(n, generator=generator, device=generator.device) < 0.5
+    probability 1/2, drawn on ``generator``'s device. In data-parallel
+    training the mask is drawn for the global batch and this rank keeps
+    its rows (``data.device_augment.draw_rows``), as the JAX tool draws it
+    for the whole sharded batch."""
+    return draw_rows(generator, n) < 0.5
 
 
 def classifier_step(state: TrainState, batch: dict[str, torch.Tensor],
@@ -135,14 +148,19 @@ def classifier_body(state: TrainState, ass_state: None, batch: dict[str, torch.T
 
 @torch.inference_mode()
 def val_accuracy(model: torch.nn.Module, pool: dict, batch_size: int, device: torch.device) -> float:
-    """Eval-mode accuracy over the whole batches of ``pool``."""
+    """Eval-mode accuracy over the whole batches of ``pool``. In
+    data-parallel training rank r scores batches r, r + W, ... and the
+    counts are summed over the ranks: every rank returns the accuracy of
+    the whole pool."""
     model.eval()
     n = (len(pool["labels"]) // batch_size) * batch_size
+    step = batch_size * parallel.data_parallel_size()
     correct = 0
-    for start in range(0, n, batch_size):
+    for start in range(parallel.data_parallel_rank() * batch_size, n, step):
         images = torch.from_numpy(pool["images"][start:start + batch_size]).to(device)
         pred = model(preprocess(model, images)).float().argmax(-1).cpu().numpy()
         correct += int((pred == pool["labels"][start:start + batch_size]).sum())
+    correct = int(parallel.global_sum(torch.tensor(correct, dtype=torch.int64, device=device)))
     return correct / max(n, 1)
 
 
@@ -171,33 +189,41 @@ def get_parser() -> argparse.ArgumentParser:
 
 
 def main(argv=None) -> dict:
-    """Pretrain, export and write ``--out``. Returns ``{'out', 'log' (one
-    dict per log entry: iteration, loss, acc, images_per_sec), 'acc'
-    (the last call's), 'val_acc', 'tensors'}``."""
+    """Pretrain, export and write ``--out`` (under ``torchrun``: rank 0
+    writes). Returns ``{'out', 'log' (one dict per log entry: iteration,
+    loss, acc, images_per_sec), 'acc' (the last call's), 'val_acc',
+    'tensors'}``; under ``torchrun`` the losses and accuracies are the
+    global batch's on every rank."""
+    from loans_tpu_torch.cli.train_localizer import start_devices
+
+    args = get_parser().parse_args(argv)
+    with parallel.process_group(torch.device(args.device).type):
+        return pretrain(args, start_devices(args))
+
+
+def pretrain(args, device: torch.device) -> dict:
+    """The run of ``main`` on ``device``."""
     from loans_tpu_torch.data.device_data import device_chunk_batches
     from loans_tpu_torch.inference.localizer import set_precision
     from loans_tpu_torch.models.resnet import ResNet, set_dtypes
     from loans_tpu_torch.train import create_train_state, pooled_step
 
-    args = get_parser().parse_args(argv)
-    if int(os.environ.get("WORLD_SIZE", "1")) > 1:
-        raise SystemExit("pretrain_backbone runs in one process: its data-parallel (torchrun) version is not "
-                         "ported; run it without torchrun")
-    device = torch.device(args.device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise SystemExit("--device cuda but torch.cuda.is_available() is false; pass --device cpu")
     set_precision()
+    main_rank = parallel.is_main()
     asset_seed = args.asset_seed if args.asset_seed is not None else args.seed
     size = (args.image_size, args.image_size)
     t0 = time.time()
-    print(f"generating {args.pool}+{args.val_pool} labeled scenes ({args.classes} classes)...", flush=True)
+    if main_rank:
+        print(f"generating {args.pool}+{args.val_pool} labeled scenes ({args.classes} classes)...", flush=True)
     train_pool = make_scene_pool(args.pool, args.classes, asset_seed, args.seed, size)
     val_pool = make_scene_pool(args.val_pool, args.classes, asset_seed, args.seed + 1, size)
-    print(f"pools ready in {time.time() - t0:.0f}s", flush=True)
+    if main_rank:
+        print(f"pools ready in {time.time() - t0:.0f}s", flush=True)
 
     dtype = torch.bfloat16 if args.bf16 else torch.float32
     torch.manual_seed(args.seed)
     model = set_dtypes(ResNet(50, class_labels=args.classes), dtype, dtype).to(device)
+    parallel.replicate(model)
     state = create_train_state(model, args.lr)
 
     refresh = None
@@ -208,7 +234,7 @@ def main(argv=None) -> dict:
     chunks = device_chunk_batches({"cls": train_pool}, args.batch_size, args.steps_per_call, seed=args.seed,
                                   device=device, refresh=refresh)
     generator = torch.Generator(device=device).manual_seed(args.seed + 7)
-    log, metrics = [], {"acc": float("nan")}
+    log, metrics = [], {"acc": torch.tensor(float("nan"), device=device)}
     done, decayed = 0, False
     t0 = time.time()
     try:
@@ -220,21 +246,23 @@ def main(argv=None) -> dict:
                                             body=classifier_body)
             done += args.steps_per_call
             if done % args.log_interval < args.steps_per_call:
-                entry = {"iteration": done, **{k: float(v) for k, v in metrics.items()}}
+                entry = {"iteration": done, **parallel.reduce_metrics([metrics])[0]}
                 entry["images_per_sec"] = done * args.batch_size / (time.time() - t0)
                 log.append(entry)
-                print(f"iter={done}  loss={entry['loss']:.4f}  acc={entry['acc']:.4f}  "
-                      f"images_per_sec={entry['images_per_sec']:.1f}", flush=True)
+                if main_rank:
+                    print(f"iter={done}  loss={entry['loss']:.4f}  acc={entry['acc']:.4f}  "
+                          f"images_per_sec={entry['images_per_sec']:.1f}", flush=True)
     finally:
         chunks.close()  # waits for a running pool refresh
 
     vacc = val_accuracy(model, val_pool, args.batch_size, device)
-    acc = float(metrics["acc"])
-    print(f"final train acc={acc:.4f}  val acc={vacc:.4f}")
+    acc = parallel.reduce_metrics([{"acc": metrics["acc"]}])[0]["acc"]
     state_dict = export_torchvision_resnet50(model.state_dict())
-    os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
-    torch.save(state_dict, args.out)
-    print(f"wrote {args.out} ({len(state_dict)} tensors, val_acc={vacc:.4f})")
+    if main_rank:
+        print(f"final train acc={acc:.4f}  val acc={vacc:.4f}")
+        os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
+        torch.save(state_dict, args.out)
+        print(f"wrote {args.out} ({len(state_dict)} tensors, val_acc={vacc:.4f})")
     return {"out": args.out, "log": log, "acc": acc, "val_acc": vacc, "tensors": len(state_dict)}
 
 

@@ -423,7 +423,12 @@ def cached_synthetic(cache_dir: str | None, kind: str, build, **kw):
     ``kind`` and ``kw`` (every value the data depend on). ``build(items=
     None)`` generates; on a hit it is called with the stored items.
     ``cache_dir=None`` disables the cache. The files are the JAX
-    package's: either package reads the other's."""
+    package's: either package reads the other's.
+
+    A miss writes the entry through a temporary file of this process and
+    thread, then renames it into place, so writers of one entry at once
+    (the ranks of a ``torchrun`` run on a cold cache) never share a
+    temporary file; each rename is atomic, and the last one wins."""
     if not cache_dir:
         return build(items=None)
     os.makedirs(cache_dir, exist_ok=True)
@@ -437,7 +442,7 @@ def cached_synthetic(cache_dir: str | None, kind: str, build, **kw):
     arrays = {"ncols": np.asarray(len(cols))}
     for i, col in enumerate(cols):
         arrays[f"col{i}"] = np.stack([np.asarray(v) for v in col])
-    tmp = path + ".tmp.npz"
+    tmp = f"{path}.{os.getpid()}-{threading.get_ident()}.tmp.npz"
     np.savez(tmp, **arrays)
     os.replace(tmp, path)
     return ds

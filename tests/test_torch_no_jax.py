@@ -457,3 +457,44 @@ def test_weight_tools_run_without_jax_or_toolchains():
     tools = [PACKAGE / "cli" / f"{name}.py" for name in ("pretrain_backbone", "import_resnet50", "import_vgg16")]
     assert not _imports(tools, ("jax", "jaxlib", "flax", "optax", "msgpack", "loans_tpu", "PIL", "cv2",
                                 "matplotlib", "triton"))
+
+
+WARM_CACHE_SCRIPT = r"""
+import os, runpy, subprocess, sys, tempfile
+spawned = []
+_Popen = subprocess.Popen
+class _Spy(_Popen):
+    def __init__(self, args, *a, **k):
+        spawned.append(args)
+        super().__init__(args, *a, **k)
+subprocess.Popen = _Spy
+for name in ("jax", "jaxlib", "flax", "optax", "msgpack", "loans_tpu", "PIL", "cv2", "matplotlib", "triton"):
+    sys.modules[name] = None  # any import of them raises ImportError
+work = tempfile.mkdtemp()
+sys.argv = ["warm_cache", "synthetic:4", "synthetic:8", "synthetic:4", "--target-size", "32", "32", "--crop-size",
+            "8", "8", "--assessor-pipeline", "stn", "--synthetic-cache", work, "--device", "cpu"]
+runpy.run_module("loans_tpu_torch.cli.warm_cache", run_name="__main__")
+from loans_tpu_torch.ops import _cuda
+assert _cuda.load_library.cache_info().currsize == 0
+assert len(os.listdir(work)) == 3 and all(n.endswith(".npz") for n in os.listdir(work)), os.listdir(work)
+assert not spawned, spawned
+assert not [m for m, v in sys.modules.items() if v is not None and m.split(".")[0] in
+            ("jax", "flax", "optax", "msgpack", "loans_tpu", "PIL", "cv2", "matplotlib", "triton")]
+import shutil
+shutil.rmtree(work)
+print("WARM_CACHE_NO_JAX_OK")
+"""
+
+
+def test_warm_cache_runs_without_jax_or_toolchains():
+    """``python -m loans_tpu_torch.cli.warm_cache ... --device cpu`` with
+    ``stn`` crops (K1's plain version) fills a cache without jax, flax,
+    optax, msgpack, ``loans_tpu``, Pillow, cv2, matplotlib or Triton, and
+    runs no ``nvcc``."""
+    env = {**os.environ, "PYTHONPATH": str(ROOT)}
+    proc = subprocess.run([sys.executable, "-c", WARM_CACHE_SCRIPT], cwd=str(ROOT), env=env, capture_output=True,
+                          text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    assert "WARM_CACHE_NO_JAX_OK" in proc.stdout and "warmed cache in " in proc.stdout
+    assert not _imports([PACKAGE / "cli" / "warm_cache.py"], ("jax", "jaxlib", "flax", "optax", "msgpack",
+                                                               "loans_tpu", "PIL", "cv2", "matplotlib", "triton"))

@@ -227,10 +227,3 @@ def test_pretrain_cli_on_cpu(tmp_path):
     pt = import_resnet50.main([str(out), str(tmp_path / "pre.pt"), "--verify", "--device", "cpu"])
     imported = checkpoint.load_params(pt)
     assert torch.equal(imported["feature_extractor.Conv_0.weight"], sd["conv1.weight"])
-
-
-def test_pretrain_refuses_under_torchrun(tmp_path, monkeypatch):
-    monkeypatch.setenv("WORLD_SIZE", "2")
-    with pytest.raises(SystemExit, match="one process"):
-        pretrain_backbone.main(["--out", str(tmp_path / "x.pth"), "--device", "cpu"])
-    assert not (tmp_path / "x.pth").exists()

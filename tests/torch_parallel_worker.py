@@ -1,5 +1,6 @@
 """One rank of the data-parallel tests: a gloo process on the CPU that
-runs the port only (no JAX), for ``tests/test_torch_parallel.py``.
+runs the port only (no JAX), for ``tests/test_torch_parallel.py`` and
+``tests/test_torch_pretrain_parallel.py``.
 
     python tests/torch_parallel_worker.py <rank> <world> <init_method> <dir>
 
@@ -21,11 +22,12 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 from loans_tpu_torch import parallel  # noqa: E402
+from loans_tpu_torch.cli import pretrain_backbone  # noqa: E402
 from loans_tpu_torch.data import device_data  # noqa: E402
 from loans_tpu_torch.data import ssd_device as sd  # noqa: E402
 from loans_tpu_torch.data.device_augment import draw_flips, draw_jitter  # noqa: E402
 from loans_tpu_torch.models import SSD300, Localizer, ResnetAssessor  # noqa: E402
-from loans_tpu_torch.models.resnet import batch_norm  # noqa: E402
+from loans_tpu_torch.models.resnet import ResNet, batch_norm  # noqa: E402
 from loans_tpu_torch.ops.geometry import Size  # noqa: E402
 from loans_tpu_torch.ops.multibox import multibox_loss  # noqa: E402
 from loans_tpu_torch.train import AlternatingConfig, TrainState, alternating_step, create_train_state, pooled_step  # noqa: E402,E501
@@ -96,6 +98,24 @@ def alternating_records(inp):
 
 
 CASES["alternating"] = CASES["alternating_rotated"] = alternating_records
+
+
+@case
+def classifier(inp):
+    """One classifier step (``pretrain_backbone.classifier_body``) on this rank's half of a
+    global batch, its flips drawn on a generator seeded as one process's;
+    the mask this rank drew, the global metrics, the parameters and Adam's
+    first moments after the step."""
+    model = ResNet(inp["n_layers"], class_labels=inp["classes"])
+    model.load_state_dict(to_torch(inp["weights"]))
+    state = create_train_state(model, inp["lr"])
+    batch = parallel.shard_batch(to_torch(inp["batch"]))
+    flips = pretrain_backbone.draw_flips(torch.Generator().manual_seed(inp["seed"]), len(batch["labels"]))
+    state, _, metrics = pretrain_backbone.classifier_body(state, None, batch,
+                                                          torch.Generator().manual_seed(inp["seed"]))
+    return {"flips": flips.numpy(), "metrics": parallel.reduce_metrics([metrics])[0],
+            "params": numpy_tree(dict(model.state_dict())),
+            "mu": numpy_tree({n: state.optimizer.state[p]["mu"] for n, p in model.named_parameters()})}
 
 
 @case
