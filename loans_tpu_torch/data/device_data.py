@@ -19,6 +19,7 @@ import torch
 import torch.distributed
 
 from loans_tpu_torch import parallel
+from loans_tpu_torch.utils.tracing import span
 
 
 def materialize(dataset) -> tuple:
@@ -134,28 +135,29 @@ def device_chunk_batches(
     chunk_i = 0
     try:
         while True:
-            for g, (factory, every) in (refresh or {}).items():
-                ready = parallel.broadcast_object(g in futures and futures[g].done())
-                if ready:
-                    tree = upload(futures.pop(g).result()) if main else None
-                    pools[g] = _broadcast_pool(tree, pools[g])
-                    generation[g] += 1
-                    samplers[g] = IndexSampler(
-                        _pool_size(pools[g]), batch_size, seed=seeds[g] + 7919 * generation[g]
-                    ).epochs()
-                    device_chunk_batches.swaps += 1
-                    if main:
-                        print(f"refresh: pool {g!r} generation {generation[g]} swapped in at chunk {chunk_i}")
-                elif main and g not in futures and every > 0 and chunk_i > 0 and chunk_i % every == 0:
-                    futures[g] = executor.submit(factory, generation[g] + 1)
-            idx = {
-                g: torch.from_numpy(
-                    np.stack([next(samplers[g])[start : start + size] for _ in range(steps_per_call)])
-                    .astype(np.int64)
-                ).to(device)
-                for g in groups
-            }
-            chunk_i += 1
+            with span("loans.feed"):
+                for g, (factory, every) in (refresh or {}).items():
+                    ready = parallel.broadcast_object(g in futures and futures[g].done())
+                    if ready:
+                        tree = upload(futures.pop(g).result()) if main else None
+                        pools[g] = _broadcast_pool(tree, pools[g])
+                        generation[g] += 1
+                        samplers[g] = IndexSampler(
+                            _pool_size(pools[g]), batch_size, seed=seeds[g] + 7919 * generation[g]
+                        ).epochs()
+                        device_chunk_batches.swaps += 1
+                        if main:
+                            print(f"refresh: pool {g!r} generation {generation[g]} swapped in at chunk {chunk_i}")
+                    elif main and g not in futures and every > 0 and chunk_i > 0 and chunk_i % every == 0:
+                        futures[g] = executor.submit(factory, generation[g] + 1)
+                idx = {
+                    g: torch.from_numpy(
+                        np.stack([next(samplers[g])[start : start + size] for _ in range(steps_per_call)])
+                        .astype(np.int64)
+                    ).to(device)
+                    for g in groups
+                }
+                chunk_i += 1
             yield {"pools": pools, "idx": idx}
     finally:
         if executor is not None:

@@ -36,6 +36,7 @@ from loans_tpu_torch.ops.multibox import MultiboxCoder
 from loans_tpu_torch.ops.stn import sample_separable, sample_separable_kernel
 from loans_tpu_torch.train.ssd_steps import ssd_train_step
 from loans_tpu_torch.train.steps import to_float01
+from loans_tpu_torch.utils.tracing import span
 
 # chainercv's random_crop_with_bbox_constraints menu; -1 = no constraint
 CONSTRAINTS = (-1.0, 0.1, 0.3, 0.5, 0.7, 0.9)
@@ -261,16 +262,18 @@ class SSDPooledBody:
         return self._defaults[device]
 
     def targets(self, batch: dict[str, torch.Tensor], generator: torch.Generator | None):
-        """(images, gt_loc, gt_conf) of a gathered batch."""
-        scenes, boxes, valid = to_float01(batch["scenes"]), batch["boxes"], batch["valid"]
-        if self.augment:
-            images, boxes, valid = ssd_augment_batch(scenes, boxes, valid, self.out_size, generator)
-        else:
-            images = scenes
-        gt_loc, gt_conf = encode_batch(
-            *self.defaults(boxes.device), boxes / self.out_size, valid,
-            variance=self.coder.variance, iou_thresh=self.coder.iou_thresh,
-        )
+        """(images, gt_loc, gt_conf) of a gathered batch, in the span
+        ``loans.train.targets``."""
+        with span("loans.train.targets"):
+            scenes, boxes, valid = to_float01(batch["scenes"]), batch["boxes"], batch["valid"]
+            if self.augment:
+                images, boxes, valid = ssd_augment_batch(scenes, boxes, valid, self.out_size, generator)
+            else:
+                images = scenes
+            gt_loc, gt_conf = encode_batch(
+                *self.defaults(boxes.device), boxes / self.out_size, valid,
+                variance=self.coder.variance, iou_thresh=self.coder.iou_thresh,
+            )
         return images, gt_loc, gt_conf
 
     def __call__(self, state, ass_state, batch, generator=None, config=None):

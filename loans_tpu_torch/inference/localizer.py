@@ -28,6 +28,7 @@ from loans_tpu_torch.insights.visual_backprop import visual_backprop
 from loans_tpu_torch.ops.geometry import corners_to_aabb, theta_corners
 from loans_tpu_torch.train import checkpoint
 from loans_tpu_torch.utils.registry import build_assessor, build_model
+from loans_tpu_torch.utils.tracing import span
 
 
 def set_precision() -> None:
@@ -117,19 +118,21 @@ class LocalizerInference:
     def _predict(self, images) -> tuple[torch.Tensor | None, ...]:
         """(rois, boxes, scores, heat) on the device for an NHWC float
         batch; heat (N, H, W, 1) is None without VisualBackprop."""
-        batch = torch.as_tensor(np.asarray(images, dtype=np.float32))
-        batch = batch.to(self.device)
-        recorded = [] if self.use_visual_backprop else None
-        rois, theta = self.localizer(batch, vbp=recorded)
-        boxes = corners_to_aabb(theta_corners(theta), self.input_size, clip=True)
-        if self.assessor is not None:
-            scores = self.assessor(rois)[:, 0]
-        else:
-            scores = torch.ones(batch.shape[0], device=self.device)
-        heat = None
-        if recorded is not None:
-            *inputs, anchor = recorded
-            heat = visual_backprop(anchor, inputs, self.localizer.vbp_ladder())
+        with span("loans.serve.upload"):
+            batch = torch.as_tensor(np.asarray(images, dtype=np.float32))
+            batch = batch.to(self.device)
+        with span("loans.serve.forward"):
+            recorded = [] if self.use_visual_backprop else None
+            rois, theta = self.localizer(batch, vbp=recorded)
+            boxes = corners_to_aabb(theta_corners(theta), self.input_size, clip=True)
+            if self.assessor is not None:
+                scores = self.assessor(rois)[:, 0]
+            else:
+                scores = torch.ones(batch.shape[0], device=self.device)
+            heat = None
+            if recorded is not None:
+                *inputs, anchor = recorded
+                heat = visual_backprop(anchor, inputs, self.localizer.vbp_ladder())
         return rois, boxes, scores, heat
 
     # -- public API (reference surface) -----------------------------------
@@ -177,22 +180,30 @@ class LocalizerInference:
         With ``sync=False`` the device tensors are returned as soon as the
         work is queued, so the caller can prepare the next batch while
         this one computes; pass them to ``finish_batch`` to collect.
+
+        The call runs in the span ``loans.serve.batch``; the stack, the
+        upload, the forward and, with ``sync``, the download and the gate
+        run in spans of their own inside it (``utils.tracing``).
         """
-        batch = np.stack(images) if isinstance(images, (list, tuple)) else images
-        out = self._predict(batch)
-        return out if not sync else self.finish_batch(out)
+        with span("loans.serve.batch"):
+            with span("loans.serve.stack"):
+                batch = np.stack(images) if isinstance(images, (list, tuple)) else images
+            out = self._predict(batch)
+            return out if not sync else self.finish_batch(out)
 
     def finish_batch(self, out):
         """Collect a ``localize_batch(sync=False)`` result; returns
         (boxes (B,1,4), rois, scores (B,), heat maps) with the assessor
         gating applied per frame; the heat maps are a list of (H, W, 3)
         uint8 images with ``use_visual_backprop``, else None."""
-        rois, boxes, scores, heat = _to_host(out)
-        if self.use_assessor:
-            gated = scores < self.score_threshold
-            boxes = np.where(gated[:, None], 0.0, boxes).astype(boxes.dtype)
-            scores = np.where(gated, 0.0, scores).astype(scores.dtype)
-        heat_imgs = None if heat is None else [heatmap_to_rgb(h) for h in heat]
+        with span("loans.serve.download"):
+            rois, boxes, scores, heat = _to_host(out)
+        with span("loans.serve.gate"):
+            if self.use_assessor:
+                gated = scores < self.score_threshold
+                boxes = np.where(gated[:, None], 0.0, boxes).astype(boxes.dtype)
+                scores = np.where(gated, 0.0, scores).astype(scores.dtype)
+            heat_imgs = None if heat is None else [heatmap_to_rgb(h) for h in heat]
         return boxes[:, None, :], rois, scores, heat_imgs
 
     def scale_boxes(self, boxes: np.ndarray, scale) -> np.ndarray:

@@ -179,6 +179,10 @@ class Trainer:
             apply_commands(parallel.broadcast_object(commands), self)
         if self._pending_metrics:
             self._flush_log()
+        for hook in self.hooks:
+            close = getattr(hook.fn, "close", None)
+            if main and callable(close):
+                close(self)
         self.save_snapshot()
         return self.loc_state, self.ass_state
 

@@ -6,7 +6,9 @@
 and writes a Chrome JSON trace under ``<log_dir>/profile``, readable in
 Perfetto or ``chrome://tracing``; the training CLI's ``--profile START
 STEPS`` adds it. The window is rounded to step calls: the hook runs after
-each call, which trains ``--steps-per-call`` iterations. ``StepTimer``
+each call, which trains ``--steps-per-call`` iterations; a run that ends
+inside the window writes the trace at its end (``close``). The trace holds
+the port's ``loans.*`` phase spans (``utils.tracing``). ``StepTimer``
 records the wall time between hook calls after a device sync and reports
 its percentiles under the JAX package's keys.
 """
@@ -53,13 +55,22 @@ class ProfileHook:
             self._t0 = time.perf_counter()
             self._first = iteration
         elif self._profiler is not None and iteration >= self.start + self.steps:
-            _sync(trainer)  # the trace holds the device's work of the window
-            self._profiler.__exit__(None, None, None)
-            self._profiler.export_chrome_trace(os.path.join(self.trace_dir, f"trace_{self._first}_{iteration}.json"))
-            self._profiler = None
-            self.done = True
-            dt = time.perf_counter() - self._t0
-            print(f"profiler trace ({self.steps} steps, {dt:.2f}s) -> {self.trace_dir}")
+            self._finish(trainer, iteration)
+
+    def close(self, trainer) -> None:
+        """End a window that the run stopped inside and write its trace
+        (``Trainer.run`` calls it at the run's end)."""
+        if self._profiler is not None:
+            self._finish(trainer, trainer.iteration)
+
+    def _finish(self, trainer, iteration: int) -> None:
+        _sync(trainer)  # the trace holds the device's work of the window
+        self._profiler.__exit__(None, None, None)
+        self._profiler.export_chrome_trace(os.path.join(self.trace_dir, f"trace_{self._first}_{iteration}.json"))
+        self._profiler = None
+        self.done = True
+        dt = time.perf_counter() - self._t0
+        print(f"profiler trace ({iteration - self._first} steps, {dt:.2f}s) -> {self.trace_dir}")
 
 
 class StepTimer:

@@ -16,6 +16,7 @@ from torch import nn
 
 from loans_tpu_torch.ops.multibox import MultiboxCoder, multibox_loss
 from loans_tpu_torch.train.state import TrainState
+from loans_tpu_torch.utils.tracing import span
 
 BIAS_GRAD_SCALE = 2.0
 WEIGHT_DECAY = 5e-4
@@ -97,13 +98,16 @@ def ssd_train_step(state: TrainState, batch) -> tuple[TrainState, dict[str, torc
     (``ops.multibox.multibox_loss``) and the update averages the ranks'
     gradients (``TrainState.apply_gradients``)."""
     images, gt_loc, gt_conf = batch
-    model = state.model.train()
-    state.optimizer.zero_grad(set_to_none=True)
-    mb_loc, mb_conf = model(images)
-    loc_loss, conf_loss = multibox_loss(mb_loc, mb_conf, gt_loc, gt_conf)
-    loss = loc_loss + conf_loss
-    loss.backward()
-    state.apply_gradients()
+    with span("loans.train.forward"):
+        model = state.model.train()
+        state.optimizer.zero_grad(set_to_none=True)
+        mb_loc, mb_conf = model(images)
+        loc_loss, conf_loss = multibox_loss(mb_loc, mb_conf, gt_loc, gt_conf)
+        loss = loc_loss + conf_loss
+    with span("loans.train.backward"):
+        loss.backward()
+    with span("loans.train.update"):
+        state.apply_gradients()
     return state, {"loss": loss.detach(), "loss/loc": loc_loss.detach(), "loss/conf": conf_loss.detach()}
 
 

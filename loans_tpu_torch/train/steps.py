@@ -39,6 +39,7 @@ from loans_tpu_torch.data.device_augment import augment_crops
 from loans_tpu_torch.ops.geometry import Size, corners_to_aabb, theta_corners
 from loans_tpu_torch.ops.losses import direction_loss, huber_loss, out_of_image_loss, smooth_iou_loss
 from loans_tpu_torch.train.state import TrainState
+from loans_tpu_torch.utils.tracing import span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -114,34 +115,41 @@ def alternating_step(
     if config.augment_reference:
         real_images = augment_crops(real_images, generator)
 
-    loc = loc_state.model.train()
-    loc_state.optimizer.zero_grad(set_to_none=True)
-    rois, theta = loc(unlabeled, generator=generator)
-    scorer = ass_state.ema if config.assessor_ema > 0 else ass_state.model
-    y_fake = _score(scorer, rois)
-    loss_localizer = mse(y_fake, torch.full_like(y_fake, config.localizer_target))
-    corners = theta_corners(theta)
-    loss_localizer = loss_localizer + direction_loss(corners, config.image_size)
-    loss_localizer = loss_localizer + _global_out_of_image_loss(corners)
-    loss_localizer.backward()
-    loc_state.apply_gradients()
+    with span("loans.train.localizer.forward"):
+        loc = loc_state.model.train()
+        loc_state.optimizer.zero_grad(set_to_none=True)
+        rois, theta = loc(unlabeled, generator=generator)
+        scorer = ass_state.ema if config.assessor_ema > 0 else ass_state.model
+        y_fake = _score(scorer, rois)
+        loss_localizer = mse(y_fake, torch.full_like(y_fake, config.localizer_target))
+        corners = theta_corners(theta)
+        loss_localizer = loss_localizer + direction_loss(corners, config.image_size)
+        loss_localizer = loss_localizer + _global_out_of_image_loss(corners)
+    with span("loans.train.localizer.backward"):
+        loss_localizer.backward()
+    with span("loans.train.localizer.update"):
+        loc_state.apply_gradients()
 
-    ass = ass_state.model.train()
-    if config.freeze_assessor:
-        with torch.no_grad():
+    with span("loans.train.assessor.forward"):
+        ass = ass_state.model.train()
+        if config.freeze_assessor:
+            with torch.no_grad():
+                y_real = ass(real_images)
+                loss_dis = mse(y_real, labels)
+        else:
+            ass_state.optimizer.zero_grad(set_to_none=True)
             y_real = ass(real_images)
             loss_dis = mse(y_real, labels)
-    else:
-        ass_state.optimizer.zero_grad(set_to_none=True)
-        y_real = ass(real_images)
-        loss_dis = mse(y_real, labels)
-        loss_dis.backward()
-        ass_state.apply_gradients()
-        if config.assessor_ema > 0:
-            decay = config.assessor_ema
-            if config.assessor_ema_start > 0 and ass_state.step < config.assessor_ema_start:
-                decay = 0.0  # pins the shadow to the live parameters
-            _ema_update(ass_state.ema, ass, decay)
+    if not config.freeze_assessor:
+        with span("loans.train.assessor.backward"):
+            loss_dis.backward()
+        with span("loans.train.assessor.update"):
+            ass_state.apply_gradients()
+            if config.assessor_ema > 0:
+                decay = config.assessor_ema
+                if config.assessor_ema_start > 0 and ass_state.step < config.assessor_ema_start:
+                    decay = 0.0  # pins the shadow to the live parameters
+                _ema_update(ass_state.ema, ass, decay)
 
     metrics = {
         "loss_localizer": loss_localizer.detach(),
@@ -190,19 +198,22 @@ def supervised_step(
     images, gt = (batch["images"], batch["boxes"]) if isinstance(batch, dict) else batch[:2]
     images = to_float01(images)
     gt = gt.reshape(images.shape[0], -1)[:, :4]
-    loc = loc_state.model.train()
-    loc_state.optimizer.zero_grad(set_to_none=True)
-    theta = loc.predict_theta(images, generator=generator)
-    corners = theta_corners(theta)
-    boxes = corners_to_aabb(corners, config.image_size, clip=False)
-    scale = float(max(config.image_size.height, config.image_size.width))
-    reg = torch.mean(huber_loss(boxes / scale, gt / scale))
-    iou = smooth_iou_loss(boxes, gt)
-    loss = reg + 0.5 * iou
-    loss = loss + direction_loss(corners, config.image_size)
-    loss = loss + _global_out_of_image_loss(corners)
-    loss.backward()
-    loc_state.apply_gradients()
+    with span("loans.train.localizer.forward"):
+        loc = loc_state.model.train()
+        loc_state.optimizer.zero_grad(set_to_none=True)
+        theta = loc.predict_theta(images, generator=generator)
+        corners = theta_corners(theta)
+        boxes = corners_to_aabb(corners, config.image_size, clip=False)
+        scale = float(max(config.image_size.height, config.image_size.width))
+        reg = torch.mean(huber_loss(boxes / scale, gt / scale))
+        iou = smooth_iou_loss(boxes, gt)
+        loss = reg + 0.5 * iou
+        loss = loss + direction_loss(corners, config.image_size)
+        loss = loss + _global_out_of_image_loss(corners)
+    with span("loans.train.localizer.backward"):
+        loss.backward()
+    with span("loans.train.localizer.update"):
+        loc_state.apply_gradients()
     metrics = {"loss_localizer": loss.detach(), "loss/box": reg.detach(), "loss/iou": iou.detach()}
     return loc_state, None, metrics
 
@@ -238,6 +249,9 @@ def pooled_step(
     models' device (``data.device_data.device_chunk_batches``). Nothing
     crosses to the host inside the K steps. Metrics are averaged over the
     K steps.
+
+    The call runs in the span ``loans.train.call`` and each step in a
+    ``loans.train.step`` inside it (``utils.tracing``).
     """
     for group, idx in chunk["idx"].items():
         if idx.shape[0] != steps_per_call:
@@ -246,13 +260,15 @@ def pooled_step(
                 f"expected steps_per_call={steps_per_call}"
             )
     history: dict[str, list[torch.Tensor]] = {}
-    for t in range(steps_per_call):
-        loc_state, ass_state, metrics = body(
-            loc_state, ass_state, gather_batch(chunk, t), generator, config
-        )
-        for key, value in metrics.items():
-            history.setdefault(key, []).append(value)
-    means = {key: torch.stack(values).mean() for key, values in history.items()}
+    with span("loans.train.call"):
+        for t in range(steps_per_call):
+            with span("loans.train.step"):
+                loc_state, ass_state, metrics = body(
+                    loc_state, ass_state, gather_batch(chunk, t), generator, config
+                )
+            for key, value in metrics.items():
+                history.setdefault(key, []).append(value)
+        means = {key: torch.stack(values).mean() for key, values in history.items()}
     return loc_state, ass_state, means
 
 
