@@ -95,7 +95,9 @@ def device_chunk_batches(
     ``(steps_per_call, batch_size)`` int64 index tensor per group, drawn
     from ``IndexSampler(n, batch_size, seed=seed + j)`` for the j-th group,
     as the JAX package draws them. Host->device traffic per K training
-    iterations is the index tensors only.
+    iterations is the index tensors only; on a CUDA device they are copied
+    from pinned memory without a wait, so the host can draw the next
+    chunk while the card still runs the last call.
 
     ``refresh`` maps a group name to ``(factory, every)``: at every
     ``every``-th chunk after chunk 0, one worker thread calls
@@ -125,6 +127,15 @@ def device_chunk_batches(
     def upload(tree):
         return {k: torch.from_numpy(np.ascontiguousarray(a)).to(device) for k, a in tree.items()}
 
+    def upload_indices(idx: np.ndarray) -> torch.Tensor:
+        # from pinned memory on a card, so the host does not wait for the
+        # queued steps; torch's caching host allocator keeps the buffer
+        # until its copy is done
+        host = torch.from_numpy(idx)
+        if device.type != "cuda":
+            return host.to(device)
+        return host.pin_memory().to(device, non_blocking=True)
+
     pools = {g: upload(tree) for g, tree in groups.items()}
     seeds = {g: seed + j for j, g in enumerate(groups)}
     samplers = {g: IndexSampler(_pool_size(tree), batch_size, seed=seeds[g]).epochs()
@@ -151,10 +162,10 @@ def device_chunk_batches(
                     elif main and g not in futures and every > 0 and chunk_i > 0 and chunk_i % every == 0:
                         futures[g] = executor.submit(factory, generation[g] + 1)
                 idx = {
-                    g: torch.from_numpy(
+                    g: upload_indices(
                         np.stack([next(samplers[g])[start : start + size] for _ in range(steps_per_call)])
                         .astype(np.int64)
-                    ).to(device)
+                    )
                     for g in groups
                 }
                 chunk_i += 1

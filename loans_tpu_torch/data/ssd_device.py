@@ -36,6 +36,7 @@ from loans_tpu_torch.ops.multibox import MultiboxCoder
 from loans_tpu_torch.ops.stn import sample_separable, sample_separable_kernel
 from loans_tpu_torch.train.ssd_steps import ssd_train_step
 from loans_tpu_torch.train.steps import to_float01
+from loans_tpu_torch.utils.constants import device_constant, device_table
 from loans_tpu_torch.utils.tracing import span
 
 # chainercv's random_crop_with_bbox_constraints menu; -1 = no constraint
@@ -147,6 +148,12 @@ def draw_ssd_augment(generator: torch.Generator | None, scenes: torch.Tensor) ->
     )
 
 
+@device_constant
+def _mean_fill(dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    """``MEAN_FILL / 255`` in ``dtype``, divided on ``device``."""
+    return torch.tensor(MEAN_FILL, dtype=dtype, device=device) / 255.0
+
+
 def augment_windows(draws: SSDDraws, boxes: torch.Tensor, valid: torch.Tensor, s: int) -> torch.Tensor:
     """(N, 4) yxyx window per image in scene pixels: the first candidate
     whose smallest IoU with the valid gt boxes meets the image's
@@ -165,13 +172,13 @@ def augment_windows(draws: SSDDraws, boxes: torch.Tensor, valid: torch.Tensor, s
     x0 = torch.clamp(s - cw, max=0.0) + draws.ux * torch.abs(s - cw)
     cand = torch.stack([y0, x0, y0 + ch, x0 + cw], dim=-1)  # (N, V, 4)
 
-    con = torch.tensor(CONSTRAINTS, device=boxes.device)[draws.constraint]
+    con = device_table(CONSTRAINTS, torch.get_default_dtype(), boxes.device)[draws.constraint]
     iou = pairwise_iou_yxyx(cand, boxes)  # (N, V, R)
     iou = torch.where(valid[:, None, :], iou, torch.inf)
     sat = iou.amin(dim=2) >= con[:, None]
     first = sat.int().argmax(dim=1)
     chosen = cand[torch.arange(n, device=boxes.device), first]
-    identity = torch.tensor([0.0, 0.0, float(s), float(s)], device=boxes.device)
+    identity = device_table((0.0, 0.0, float(s), float(s)), torch.get_default_dtype(), boxes.device)
     return torch.where(sat.any(dim=1)[:, None], chosen, identity)
 
 
@@ -210,7 +217,7 @@ def ssd_augment_batch(
     crop = (sample_separable_kernel if stacked.is_cuda else sample_separable)(
         stacked, theta, Size(out_size, out_size))
     coverage = crop[..., 3:4]
-    mean = torch.tensor(MEAN_FILL, dtype=scenes.dtype, device=scenes.device) / 255.0
+    mean = _mean_fill(scenes.dtype, scenes.device)
     images = crop[..., :3] + (1.0 - coverage) * mean
 
     # the renderer's align-corners map (box_to_theta): source wy0 -> output

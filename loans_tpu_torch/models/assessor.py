@@ -24,6 +24,14 @@ from torch import nn
 
 from loans_tpu_torch.models.resnet import Conv2d, set_dtypes
 from loans_tpu_torch.ops.geometry import Size
+from loans_tpu_torch.utils.constants import device_constant
+
+
+@device_constant
+def _fan_in_scale(fan_in: int, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    """1 / sqrt(fan_in) as JAX computes the head's scale: the fan-in, its
+    root and reciprocal in the features' dtype, on their device."""
+    return 1.0 / torch.sqrt(torch.tensor(float(fan_in), dtype=dtype, device=device))
 
 
 def _conv(in_ch: int, out_ch: int, kernel: int, stride: int, pad: int) -> Conv2d:
@@ -109,7 +117,5 @@ class ResnetAssessor(nn.Module):
         h = F.relu(h).permute(0, 2, 3, 1).flatten(1)  # (h, w, c) order
         if features is not None:
             features.append(h)
-        # as JAX: the fan-in, its root and reciprocal, and the head in the features' dtype
-        fan_in = torch.tensor(float(self.fan_in), dtype=h.dtype, device=h.device)
-        h = F.linear(h * (1.0 / torch.sqrt(fan_in)), self.Dense_0.weight.to(h.dtype))
+        h = F.linear(h * _fan_in_scale(self.fan_in, h.dtype, h.device), self.Dense_0.weight.to(h.dtype))
         return torch.sigmoid(h.float())

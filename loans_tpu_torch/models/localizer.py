@@ -40,6 +40,7 @@ from loans_tpu_torch.models.resnet import (
 from loans_tpu_torch.ops.geometry import Size
 from loans_tpu_torch.ops.rotation_dropout import rotation_dropout
 from loans_tpu_torch.ops.stn import spatial_transform
+from loans_tpu_torch.utils.constants import device_table
 
 # ImageNet channel means, RGB order, for x*255 inputs.
 IMAGENET_MEAN_RGB = (123.68, 116.779, 103.939)
@@ -172,7 +173,7 @@ class Localizer(nn.Module):
         if self.transform_rois_to_grayscale:
             if rois.shape[-1] != 3:
                 raise ValueError("rois are not in RGB, can not convert them to grayscale")
-            weights = rois.new_tensor(GRAYSCALE_WEIGHTS)
+            weights = device_table(GRAYSCALE_WEIGHTS, rois.dtype, rois.device)
             rois = (rois * weights).sum(dim=-1, keepdim=True)
         return rois, theta
 

@@ -17,6 +17,8 @@ from typing import NamedTuple
 
 import torch
 
+from loans_tpu_torch.utils.constants import device_table
+
 
 class Size(NamedTuple):
     """Image size (height, width)."""
@@ -50,7 +52,7 @@ def theta_corners(theta: torch.Tensor) -> torch.Tensor:
 def scale_corners(corners: torch.Tensor, image_size: Size) -> torch.Tensor:
     """[-1, 1] corner coords -> pixel coords ((g + 1) / 2 * size)."""
     half = (corners + 1.0) / 2.0
-    scale = corners.new_tensor([image_size.width, image_size.height])
+    scale = device_table((image_size.width, image_size.height), corners.dtype, corners.device)
     return half * scale
 
 
@@ -69,7 +71,7 @@ def corners_to_aabb(
     """
     px = scale_corners(corners, image_size)
     if clip:
-        hi = px.new_tensor([image_size.width, image_size.height])
+        hi = device_table((image_size.width, image_size.height), px.dtype, px.device)
         px = torch.minimum(px.clamp(min=0.0), hi)
     tl, tr, bl, br = px[:, 0], px[:, 1], px[:, 2], px[:, 3]
     x_min = torch.minimum(tl[:, 0], bl[:, 0])

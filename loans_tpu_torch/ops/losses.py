@@ -30,6 +30,7 @@ from loans_tpu_torch.ops.geometry import (
     elementwise_iou,
     scale_corners,
 )
+from loans_tpu_torch.utils.constants import device_table
 
 
 def _relu(x: torch.Tensor) -> torch.Tensor:
@@ -196,7 +197,7 @@ def smooth_iou_loss(
     inter = wh[:, 0] * wh[:, 1]
     area_p = _relu(pred_boxes[:, 2:] - pred_boxes[:, :2]).prod(dim=1)
     area_g = _relu(gt_boxes[:, 2:] - gt_boxes[:, :2]).prod(dim=1)
-    union = torch.maximum(area_p + area_g - inter, inter.new_tensor(1e-6))
+    union = torch.maximum(area_p + area_g - inter, device_table(1e-6, inter.dtype, inter.device))
     return 1.0 - (inter / union).mean()
 
 

@@ -16,6 +16,8 @@ from __future__ import annotations
 
 import torch
 
+from loans_tpu_torch.utils.constants import device_table
+
 _OFFDIAG_ZERO = ((1.0, 0.0, 1.0), (0.0, 1.0, 1.0))
 
 
@@ -39,7 +41,7 @@ def rotation_dropout(
     Returns:
       (N, 2, 3) masked parameters.
     """
-    offdiag_keep = theta.new_tensor(_OFFDIAG_ZERO)
+    offdiag_keep = device_table(_OFFDIAG_ZERO, theta.dtype, theta.device)
     if ratio == 0.0:
         return theta * offdiag_keep
     if not train:
